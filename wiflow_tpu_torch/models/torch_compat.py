@@ -1,0 +1,171 @@
+"""Carry WiFlow weights from the JAX package's variable tree to the port.
+
+The port's modules use the reference torch ``state_dict`` names, so a
+``best_pose_model.pth`` loads as it is.  A JAX ``{'params',
+'batch_stats'}`` tree (as numpy arrays) maps onto the same names through
+this module's own copy of ``wiflow_tpu/models/torch_compat.py::wiflow_spec``
+and its inverse layout functions — name reshuffling and transposes only:
+
+  grouped Conv1d  (K, G, ci_g, co_g) -> (Co, Ci/G, K)
+  pointwise Conv1d (Ci, Co)           -> (Co, Ci, 1)
+  (1,3) Conv2d     (3, Ci, Co)        -> (Co, Ci, 1, 3)
+  1x1 Conv2d       (Ci, Co)           -> (Co, Ci, 1, 1)
+  3x3 Conv2d       (3, 3, Ci, Co)     -> (Co, Ci, 3, 3)
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, Dict, List, Mapping, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from wiflow_tpu_torch.core.config import ModelConfig
+
+Path = Tuple[str, ...]
+# (torch_key, collection, flax_path, layout function flax -> torch)
+Spec = Tuple[str, str, Path, Callable[[np.ndarray], np.ndarray]]
+
+
+def _grouped_inv(w: np.ndarray) -> np.ndarray:
+    k, g, ci_g, co_g = w.shape
+    return w.transpose(1, 3, 2, 0).reshape(g * co_g, ci_g, k)
+
+
+def _pw1d_inv(w: np.ndarray) -> np.ndarray:
+    return w.T[:, :, None]
+
+
+def _conv1x3_inv(w: np.ndarray) -> np.ndarray:
+    return w.transpose(2, 1, 0)[:, :, None, :]
+
+
+def _conv1x1_inv(w: np.ndarray) -> np.ndarray:
+    return w.T[:, :, None, None]
+
+
+def _conv3x3_inv(w: np.ndarray) -> np.ndarray:
+    return w.transpose(3, 2, 0, 1)
+
+
+def _ident(w: np.ndarray) -> np.ndarray:
+    return w
+
+
+def _bn_specs(torch_prefix: str, flax_path: Path) -> List[Spec]:
+    return [
+        (f"{torch_prefix}.weight", "params", flax_path + ("weight",), _ident),
+        (f"{torch_prefix}.bias", "params", flax_path + ("bias",), _ident),
+        (f"{torch_prefix}.running_mean", "batch_stats",
+         flax_path + ("running_mean",), _ident),
+        (f"{torch_prefix}.running_var", "batch_stats",
+         flax_path + ("running_var",), _ident),
+    ]
+
+
+def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
+    specs: List[Spec] = []
+    n_in = cfg.num_subcarriers
+    for i, n_out in enumerate(cfg.tcn_channels):
+        tp, fp = f"tcn.network.{i}", ("tcn", f"network_{i}")
+        specs += [
+            (f"{tp}.conv1_group.weight", "params",
+             fp + ("conv1_group_weight",), _grouped_inv),
+            (f"{tp}.conv1_pw.weight", "params",
+             fp + ("conv1_pw_weight",), _pw1d_inv),
+            (f"{tp}.conv2_group.weight", "params",
+             fp + ("conv2_group_weight",), _grouped_inv),
+            (f"{tp}.conv2_pw.weight", "params",
+             fp + ("conv2_pw_weight",), _pw1d_inv),
+        ]
+        for bn in ("bn1_group", "bn1_pw", "bn2_group", "bn2_pw"):
+            specs += _bn_specs(f"{tp}.{bn}", fp + (bn,))
+        if n_in != n_out:
+            specs.append((f"{tp}.downsample.0.weight", "params",
+                          fp + ("downsample_weight",), _pw1d_inv))
+            specs += _bn_specs(f"{tp}.downsample.1", fp + ("downsample_bn",))
+        n_in = n_out
+
+    def conv_block(torch_prefix: str, flax_name: str) -> None:
+        fp = (flax_name,)
+        for idx, tidx in ((1, 0), (2, 4), (3, 8)):
+            specs.append((f"{torch_prefix}.block.{tidx}.weight", "params",
+                          fp + (f"conv{idx}_weight",), _conv1x3_inv))
+            specs.append((f"{torch_prefix}.block.{tidx}.bias", "params",
+                          fp + (f"conv{idx}_bias",), _ident))
+            specs.extend(_bn_specs(f"{torch_prefix}.block.{tidx + 1}",
+                                   fp + (f"bn{idx}",)))
+        specs.append((f"{torch_prefix}.downsample.0.weight", "params",
+                      fp + ("downsample_weight",), _conv1x1_inv))
+        specs.extend(_bn_specs(f"{torch_prefix}.downsample.1",
+                               fp + ("downsample_bn",)))
+
+    conv_block("up", "up")
+    for j in range(len(cfg.conv_channels)):
+        conv_block(f"residual_blocks.{j}", f"residual_blocks_{j}")
+
+    for axis in ("width_axis", "height_axis"):
+        tp, fp = f"attention.{axis}", ("attention", axis)
+        specs.append((f"{tp}.qkv_transform.weight", "params",
+                      fp + ("qkv_weight",), _pw1d_inv))
+        for bn in ("bn_qkv", "bn_similarity", "bn_output"):
+            specs += _bn_specs(f"{tp}.{bn}", fp + (bn,))
+
+    specs += [
+        ("decoder.0.weight", "params", ("decoder_conv1_weight",),
+         _conv3x3_inv),
+        ("decoder.0.bias", "params", ("decoder_conv1_bias",), _ident),
+        ("decoder.3.weight", "params", ("decoder_conv2_weight",),
+         _conv1x1_inv),
+        ("decoder.3.bias", "params", ("decoder_conv2_bias",), _ident),
+    ]
+    specs += _bn_specs("decoder.1", ("decoder_bn1",))
+    specs += _bn_specs("decoder.4", ("decoder_bn2",))
+    return specs
+
+
+def _get_path(tree: Mapping[str, Any], path: Path) -> Any:
+    node = tree
+    for key in path:
+        node = node[key]
+    return node
+
+
+def state_dict_from_jax(variables: Mapping[str, Any],
+                        cfg: ModelConfig = ModelConfig()
+                        ) -> Dict[str, torch.Tensor]:
+    """JAX ``{'params', 'batch_stats'}`` tree -> the port's ``state_dict``.
+
+    Leaves are numpy arrays (or anything ``np.asarray`` takes); values are
+    copied as float32 CPU tensors, bit for bit.  A leaf missing from the
+    tree raises ``KeyError`` naming its path.
+    """
+    out: Dict[str, torch.Tensor] = {}
+    for torch_key, coll, path, inv in wiflow_spec(cfg):
+        try:
+            leaf = _get_path(variables[coll], path)
+        except KeyError:
+            raise KeyError(f"JAX variables lack {coll}/{'/'.join(path)} "
+                           f"(torch key {torch_key})") from None
+        arr = np.ascontiguousarray(inv(np.asarray(leaf, np.float32)))
+        out[torch_key] = torch.from_numpy(arr.copy())
+    return out
+
+
+def load_state_dict(module: nn.Module,
+                    state_dict: Mapping[str, Any]) -> nn.Module:
+    """Load ``state_dict`` into ``module``, strict except for exactly the
+    ``num_batches_tracked`` counters, which JAX exports do not carry
+    (``wiflow_tpu/models/torch_compat.py:79-87``) and eval never reads."""
+    sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+          for k, v in state_dict.items()}
+    result = module.load_state_dict(sd, strict=False)
+    missing = [k for k in result.missing_keys
+               if not k.endswith(".num_batches_tracked")]
+    if missing or result.unexpected_keys:
+        raise KeyError(f"state_dict does not match the module: missing "
+                       f"{missing[:5]} ({len(missing)}), unexpected "
+                       f"{result.unexpected_keys[:5]} "
+                       f"({len(result.unexpected_keys)})")
+    return module
