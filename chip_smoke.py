@@ -27,7 +27,6 @@ The second-to-last line is the kernels' JSON record, the last line
 
 from __future__ import annotations
 
-import argparse
 import json
 import os
 import statistics
@@ -42,15 +41,21 @@ import torch
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
-# Tolerances, as max|kernel - plain| <= TOL * max(1, max|plain|):
+# Tolerances, as max|kernel - plain| <= TOL * max|plain|:
 # fp32 — the kernel and the plain version do the same fp32 arithmetic in
 # another summation order (sums of up to ~600 terms): 1e-4.
 # bf16 — against the fp32 plain version: inputs, weights and each stored
 # intermediate are rounded to bf16 (8-bit mantissa, 2^-9 relative), up to
 # three times per TCN level and conv block; on an H100 the largest error
-# seen was 5.6e-3 of max|ref| (TCN level 0): 2e-2.
+# seen was 7.1e-3 of max|ref| (the plain module in bf16): 2e-2.
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
+
+# The serving path's batch (``bench.py``'s serving measurement), the
+# CUDA-event timings per median, and the seed of weights and inputs.
+BATCH = 4096
+RUNS = 20
+SEED = 0
 
 
 def log(*a):
@@ -66,10 +71,10 @@ def compare(name: str, got: torch.Tensor, ref: torch.Tensor,
         raise AssertionError(f"{name}: non-finite values")
     err = (got.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    limit = tol * max(1.0, scale)
+    limit = tol * scale
     log(f"  {name}: max_abs_err={err:.6e} max_rel_err={err / scale:.6e} "
         f"(max|ref|={scale:.4e}) limit={limit:.3e} "
-        f"[tol {tol:g} x max(1, max|ref|)] {'ok' if err <= limit else 'FAIL'}")
+        f"[tol {tol:g} x max|ref|] {'ok' if err <= limit else 'FAIL'}")
     if err > limit:
         raise AssertionError(f"{name}: {err} > {limit}")
     return err
@@ -155,11 +160,6 @@ def bound_ms(flops, nbytes, dtype):
 
 
 def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--batch", type=int, default=4096)
-    ap.add_argument("--runs", type=int, default=20)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -207,14 +207,14 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg16 = ModelConfig()
     cfg32 = ModelConfig(compute_dtype="float32")
-    gen = torch.Generator().manual_seed(args.seed)
+    gen = torch.Generator().manual_seed(SEED)
     ref_model = WiFlowPoseModel(cfg32, device=dev, generator=gen)
     nontrivial_stats(ref_model)
     sd = ref_model.state_dict()
     packed32 = pack_fast(sd, cfg32, device=dev)
     packed16 = pack_fast(sd, cfg16, device=dev)
-    b, t = args.batch, cfg16.window_size
-    dgen = torch.Generator(device=dev).manual_seed(args.seed + 1)
+    b, t = BATCH, cfg16.window_size
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 1)
     x32 = torch.randn((b, cfg16.num_subcarriers, t), generator=dgen,
                       device=dev)
 
@@ -287,7 +287,7 @@ def main() -> int:
         model16 = load_state_dict(WiFlowPoseModel(cfg16, device=dev), sd)
         compare("module bf16 vs module fp32", model16(x32), ref_out, TOL_BF16)
 
-        sgen = torch.Generator(device=dev).manual_seed(args.seed + 2)
+        sgen = torch.Generator(device=dev).manual_seed(SEED + 2)
         stream = torch.randn((b + t - 1, cfg16.num_subcarriers),
                              generator=sgen, device=dev)
         infer = make_stream_infer(lambda w: fast_forward(packed16, w),
@@ -305,7 +305,7 @@ def main() -> int:
                 TOL_F32)
 
         # -- phase 4: timings ----------------------------------------------
-        log(f"phase 4: timings (CUDA events, median of {args.runs})")
+        log(f"phase 4: timings (CUDA events, median of {RUNS})")
         tin16 = tcn_in.to(torch.bfloat16)
         rows16 = rows.to(torch.bfloat16)
         a16 = a_in.to(torch.bfloat16)
@@ -332,8 +332,8 @@ def main() -> int:
         }
         record = []
         for name, (kfn, pfn, (flops, nbytes)) in cases.items():
-            ms = time_ms(kfn, args.runs)
-            plain_ms = time_ms(pfn, max(3, args.runs // 4))
+            ms = time_ms(kfn, RUNS)
+            plain_ms = time_ms(pfn, max(3, RUNS // 4))
             bms, by = bound_ms(flops, nbytes, torch.bfloat16)
             log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
                 f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
@@ -347,10 +347,10 @@ def main() -> int:
                            "plain_ms": plain_ms, "bound_ms": bms,
                            "bound_by": by, "library_ms": None})
         dec_in = attn_k.dual_axial_attention_eval(a16, packed16.attention)
-        dec_ms = time_ms(lambda: decode(packed16, dec_in), args.runs)
+        dec_ms = time_ms(lambda: decode(packed16, dec_in), RUNS)
         log(f"  decoder (3x3 and 1x1 conv in torch, mean): {dec_ms:.4f} ms")
-        ff_ms = time_ms(lambda: fast_forward(packed16, x32), args.runs)
-        mod_ms = time_ms(lambda: model16(x32), max(3, args.runs // 4))
+        ff_ms = time_ms(lambda: fast_forward(packed16, x32), RUNS)
+        mod_ms = time_ms(lambda: model16(x32), max(3, RUNS // 4))
         log(f"fast_forward bf16 batch {b}: {ff_ms:.4f} ms = "
             f"{b / ff_ms * 1e3:.1f} windows/s; plain-torch module bf16: "
             f"{mod_ms:.4f} ms = {b / mod_ms * 1e3:.1f} windows/s")
