@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
-"""Drive the port's serving path on one NVIDIA GPU and check its kernels.
+"""Drive the port's serving and training paths on one NVIDIA GPU and check
+their kernels.
 
     python3 chip_smoke.py            # from the repository root, one CUDA card
 
 Phases (any failure exits nonzero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the three CUDA kernels from ``wiflow_tpu_torch/csrc``
-   (one nvcc each, started together);
+   and the build of the five CUDA libraries from ``wiflow_tpu_torch/csrc``
+   (one nvcc each, started together), with ptxas's registers and spills
+   under each kernel's name;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``): fp32 with TF32 off,
@@ -19,16 +21,38 @@ Phases (any failure exits nonzero; nothing is caught):
    counter is reset before and read after the batch-4096 run and the
    stream;
 4. timings from CUDA events (warm-up, then the median of several runs):
-   each kernel, its plain version, the decoder and ``fast_forward``.
+   each kernel, its plain version, the decoder and ``fast_forward``;
+5. the four train kernels (``axial_core`` and ``logits_sums``, forward and
+   backward) against their plain versions at the train step's shapes for
+   batch 256 (width axis n=3840, L=20; height axis n=5120, L=15) and at 7
+   sequences, which leave the last thread block part-filled: fp32 with
+   TF32 off, the ``[2, G]`` sums and ``dscale`` also against float64, and
+   bf16 against the fp32 plain version;
+6. the training slice: the default ``ModelConfig`` (bf16, dropout
+   0.5/0.3), seeded weights, AdamW, batch 256, 2 epochs of 16 steps over
+   4096 windows on the card (the launch counters reset before the first
+   step and read after it; the second step run with torch's sync debug
+   mode set to raise on any host sync); one fp32 step with dropout at 0
+   through the kernels against the same step through the plain versions;
+   and one ``train_pose_model`` epoch on a 2048/512/512 split;
+7. timings: the train step (forward, backward, clip, AdamW) through the
+   kernels and through the plain versions, in alternating turns, the
+   host's time to enqueue one step, and a ``torch.profiler`` breakdown of
+   the step's device time; each train kernel against its plain version,
+   its bound and ``scaled_dot_product_attention``; peak memory.
 
-The second-to-last line is the kernels' JSON record, the last line
+The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
+import math
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
@@ -51,11 +75,24 @@ PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL_F32 = 1e-4
 TOL_BF16 = 2e-2
 
-# The serving path's batch (``bench.py``'s serving measurement), the
-# CUDA-event timings per median, and the seed of weights and inputs.
+# The serving path's batch (``bench.py``'s serving measurement), the train
+# step's batch (``bench.py``'s train measurement), the windows the training
+# phase trains on, the CUDA-event timings per median, and the seed of
+# weights and inputs.
 BATCH = 4096
+TRAIN_BATCH = 256
+TRAIN_WINDOWS = 4096
 RUNS = 20
 SEED = 0
+# Rounds of the train step's kernel-vs-plain comparison (phase 7).
+STEP_ROUNDS = 6
+# The train kernels: their names in the record, and their attributes in
+# ``ops/kernels/axial_attention_train.py``.
+KERNEL_ATTRS = {"axial_core_fwd": "CORE_FORWARD",
+                "axial_core_bwd": "CORE_BACKWARD",
+                "logits_sums_fwd": "SUMS_FORWARD",
+                "logits_sums_bwd": "SUMS_BACKWARD"}
+TRAIN_KERNELS = tuple(KERNEL_ATTRS)
 
 
 def log(*a):
@@ -95,6 +132,27 @@ def time_ms(fn, runs: int, warmup: int = 3) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def time_step_ms(fn, runs: int, warmup: int = 3) -> tuple[float, float]:
+    """Medians of ``runs`` CUDA-event timings of ``fn()`` and of the host's
+    time until ``fn()`` returns, each run from an idle device, after
+    warm-up."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    device, host = [], []
+    for _ in range(runs):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e3)
+        b.record()
+        b.synchronize()
+        device.append(a.elapsed_time(b))
+    return statistics.median(device), statistics.median(host)
 
 
 def nontrivial_stats(model: torch.nn.Module, scale: float = 0.2) -> None:
@@ -159,6 +217,448 @@ def bound_ms(flops, nbytes, dtype):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def ptxas_report(log_text: str):
+    """(kernel, line) for each registers or spill line of nvcc's ``-Xptxas
+    -v`` report, under the entry function ptxas names before it
+    (demangled with ``cu++filt`` or ``c++filt`` where one is installed)."""
+    rows, name = [], "?"
+    for line in log_text.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+        elif "registers" in line or "spill" in line:
+            rows.append((name, line.split(":", 1)[-1].strip()))
+    names = sorted({n for n, _ in rows})
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    readable = dict(zip(names, names))
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names), text=True,
+                             capture_output=True).stdout.splitlines()
+        if len(out) == len(names):
+            readable = dict(zip(names, out))
+    return [(readable[n], line) for n, line in rows]
+
+
+def compare_leaves(what, got, ref, tol, floor_frac):
+    """``compare`` over named tensors, each leaf held to ``tol`` times the
+    larger of its own max|ref| and ``floor_frac`` of the largest max|ref|
+    of all leaves (leaves that are 0 in exact arithmetic, such as a conv
+    bias before a BatchNorm, carry only rounding noise).  Logs the leaf
+    closest to its limit."""
+    scale = {n: ref[n].float().abs().max().item() for n in ref}
+    floor = floor_frac * max(scale.values())
+    worst, worst_ratio = None, -1.0
+    for n in ref:
+        err = (got[n].float() - ref[n].float()).abs().max().item()
+        limit = tol * max(scale[n], floor)
+        if not torch.isfinite(got[n]).all() or err > limit:
+            raise AssertionError(f"{what} {n}: {err} > {limit}")
+        if err / limit > worst_ratio:
+            worst, worst_ratio = (n, err, limit), err / limit
+    n, err, limit = worst
+    log(f"  {what}: {len(ref)} leaves ok [tol {tol:g} x max(max|ref|, "
+        f"{floor_frac:g} x largest)]; closest {n}: max_abs_err={err:.6e} "
+        f"limit={limit:.3e}")
+
+
+def train_axes():
+    """(label, sequences, length) of the train kernels' launches: both
+    axes of the ``[256, 15, 20, 64]`` attention input, then 7 sequences,
+    which leave the last thread block part-filled."""
+    h, w = 15, 20
+    return [("width", TRAIN_BATCH * h, w), ("height", TRAIN_BATCH * w, h),
+            ("width, 7 seqs", 7, w), ("height, 7 seqs", 7, h)]
+
+
+def train_work(kind, shapes, c, g, esize):
+    """(FLOPs, bytes) of one train kernel over ``shapes`` [(n, L)]: each
+    multiply-add of q.k, p.v and their gradients counts 2, each input
+    byte is read once and each output written once."""
+    flops = nbytes = 0
+    for n, length in shapes:
+        pairs, rows = n * length * length, n * length * c * esize
+        if kind == "axial_core_fwd":       # logits, p @ v; q, k, v -> out
+            flops += 4 * pairs * c
+            nbytes += 4 * rows + 4 * g
+        elif kind == "axial_core_bwd":     # logits, dsim, dq, dk, dv
+            flops += 10 * pairs * c
+            nbytes += 7 * rows + 8 * g
+        elif kind == "logits_sums_fwd":    # logits, their sum and square
+            flops += 2 * pairs * c + 3 * pairs * g
+            nbytes += 2 * rows + 8 * g
+        else:                              # logits, dq, dk
+            flops += 6 * pairs * c
+            nbytes += 4 * rows + 8 * g
+    return flops, nbytes
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Run the model's train-mode attention through the plain versions of
+    its kernels, for the comparisons and timings of phases 6 and 7."""
+    import wiflow_tpu_torch.models.wiflow as wiflow
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    saved = wiflow.axial_core, wiflow.logits_moments_fused
+    wiflow.axial_core = tk.axial_core_plain
+    wiflow.logits_moments_fused = (
+        lambda q, k, groups, count: tk.logits_moments(q, k, groups))
+    try:
+        yield
+    finally:
+        wiflow.axial_core, wiflow.logits_moments_fused = saved
+
+
+def check_train_kernels(dev, c, g):
+    """Phase 5.  Returns the bf16 inputs of the two main axes (for the
+    timings of phase 7) and each kernel's largest bf16 error on them."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    log(f"phase 5: train kernels vs plain versions, batch {TRAIN_BATCH} "
+        f"shapes")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 4)
+    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    main16 = []
+    for label, n, length in train_axes():
+        qkv = torch.randn((n, length, 3 * c), generator=gen, device=dev)
+        scale = torch.empty(g, device=dev).uniform_(0.25, 0.45, generator=gen)
+        dout = torch.randn((n, length, c), generator=gen, device=dev)
+        dsums = torch.randn((2, g), generator=gen, device=dev)
+
+        def plain(fn, leaves, cot, dt):
+            leaves = [t.detach().to(dt).requires_grad_(True) for t in leaves]
+            out = fn(*leaves)
+            return (out.detach(),
+                    *torch.autograd.grad(out, leaves, cot.to(out.dtype)))
+
+        q, k, v = qkv.split(c, dim=-1)
+        core32 = plain(tk.axial_core_plain, (q, k, v, scale), dout,
+                       torch.float32)
+        core64 = plain(tk.axial_core_plain, (q, k, v, scale), dout,
+                       torch.float64)
+        sums_fn = lambda a, b: tk.logits_sums_plain(a, b, g)  # noqa: E731
+        sums32 = plain(sums_fn, (q, k), dsums, torch.float32)
+        sums64 = plain(sums_fn, (q, k), dsums, torch.float64)
+        for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            tag = f"{label}, {'fp32' if dt == torch.float32 else 'bf16'}"
+            qt, kt, vt = qkv.to(dt).split(c, dim=-1)   # thirds, read in place
+            e = {"axial_core_fwd": compare(
+                f"axial_core fwd {tag}",
+                tk.axial_core_forward(qt, kt, vt, scale), core32[0], tol)}
+            grads = tk.axial_core_backward(qt, kt, vt, scale, dout.to(dt))
+            e["axial_core_bwd"] = max(
+                [compare(f"axial_core bwd {x} {tag}", got, ref, tol)
+                 for x, got, ref in zip(("dq", "dk", "dv"), grads,
+                                        core32[1:4])]
+                + [compare(f"axial_core bwd dscale {tag} vs float64",
+                           grads[3], core64[4], tol)])
+            sums = tk.logits_sums_forward(qt, kt, g)
+            e["logits_sums_fwd"] = max(
+                compare(f"logits_sums fwd {x} {tag} vs float64", sums[i],
+                        sums64[0][i], tol)
+                for i, x in enumerate(("sum", "sum of squares")))
+            dq, dk = tk.logits_sums_backward(qt, kt, dsums)
+            e["logits_sums_bwd"] = max(
+                compare(f"logits_sums bwd dq {tag}", dq, sums32[1], tol),
+                compare(f"logits_sums bwd dk {tag}", dk, sums32[2], tol))
+            if dt == torch.bfloat16 and "seqs" not in label:
+                errs = {x: max(errs[x], e[x]) for x in errs}
+        if "seqs" not in label:
+            main16.append((qkv.to(torch.bfloat16), scale,
+                           dout.to(torch.bfloat16), dsums))
+    torch.cuda.synchronize()
+    return main16, errs
+
+
+def train_slice(dev, all_kernels):
+    """Phase 6.  Returns the bf16 train state, one batch, and the launches
+    of one train step."""
+    from wiflow_tpu_torch.core.config import (
+        Config, ModelConfig, OptimConfig, TrainConfig,
+    )
+    from wiflow_tpu_torch.train.loop import train_pose_model
+    from wiflow_tpu_torch.train.steps import (
+        create_train_state, make_batch_indices, train_step,
+    )
+    cfg = ModelConfig()
+    log(f"phase 6: training, default ModelConfig ({cfg.compute_dtype}, "
+        f"dropout {cfg.dropout}/{cfg.conv_dropout}), AdamW "
+        f"{OptimConfig().lr:g}, batch {TRAIN_BATCH}, 2 epochs over "
+        f"{TRAIN_WINDOWS} windows")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+    c_in, kp = cfg.num_subcarriers, cfg.num_keypoints
+    xs = torch.randn((TRAIN_WINDOWS, c_in, cfg.window_size), generator=gen,
+                     device=dev).to(torch.bfloat16)
+    # targets: a fixed seeded function of the window, to be learned
+    proj = torch.randn((c_in, 2 * kp), generator=gen, device=dev) / c_in ** 0.5
+    ys = (0.3 * torch.tanh(4.0 * xs.float().mean(dim=2) @ proj)).reshape(
+        TRAIN_WINDOWS, kp, 2)
+    state = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
+    shuffle = torch.Generator().manual_seed(SEED)
+    losses, launches = [], None
+    for _ in range(2):
+        idx = make_batch_indices(TRAIN_WINDOWS, TRAIN_BATCH, torch.randperm(
+            TRAIN_WINDOWS, generator=shuffle)).to(dev)
+        for bi in idx:
+            if launches is None:
+                for k in all_kernels.values():
+                    k.launches = 0
+                m = train_step(state, xs[bi], ys[bi])
+                torch.cuda.synchronize()
+                launches = {n: k.launches for n, k in all_kernels.items()}
+                log(f"kernels launched by one train step: "
+                    f"{json.dumps(launches)}")
+                if any(launches[n] != 2 for n in TRAIN_KERNELS):
+                    raise AssertionError(f"a train kernel did not run twice "
+                                         f"(once per axis): {launches}")
+            elif len(losses) == 1:
+                # the second step must not wait on the device: torch
+                # raises on any synchronizing call in this mode
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    m = train_step(state, xs[bi], ys[bi])
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                log("  one train step ran with no host sync "
+                    "(torch.cuda.set_sync_debug_mode('error'))")
+            else:
+                m = train_step(state, xs[bi], ys[bi])
+            losses.append(m["loss"])
+    losses = torch.stack(losses).cpu()
+    log("  loss per step: " + " ".join(f"{v:.4f}" for v in losses.tolist()))
+    first, last = losses[:8].mean().item(), losses[-8:].mean().item()
+    log(f"  mean loss of the first 8 steps {first:.6f}, of the last 8 "
+        f"{last:.6f}")
+    if not torch.isfinite(losses).all() or not last < first:
+        raise AssertionError("the loss is not finite or did not descend")
+
+    # one fp32 step without dropout, through the kernels and through the
+    # plain versions, from the same seed (cuDNN deterministic, so that the
+    # attention is the only difference)
+    cfg32 = ModelConfig(compute_dtype="float32", dropout=0.0,
+                        conv_dropout=0.0)
+    xb, yb = xs[:TRAIN_BATCH].float(), ys[:TRAIN_BATCH]
+    runs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, ctx in (("kernels", contextlib.nullcontext()),
+                          ("plain", plain_attention())):
+            st = create_train_state(cfg32, OptimConfig(), seed=SEED,
+                                    device=dev)
+            with ctx:
+                m = train_step(st, xb, yb)
+            runs[name] = (m, {n: p.grad for n, p in
+                              st.model.named_parameters()},
+                          {n: b for n, b in st.model.named_buffers()
+                           if "running" in n})
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (mk, gk, bk), (mp, gp, bp) = runs["kernels"], runs["plain"]
+    for key in ("loss", "position", "bone", "mpe", "grad_norm"):
+        compare(f"train step fp32 {key}, kernels vs plain", mk[key], mp[key],
+                TOL_F32)
+    compare_leaves("train step fp32 gradients, kernels vs plain", gk, gp,
+                   TOL_F32, 1e-2)
+    compare_leaves("train step fp32 running statistics, kernels vs plain",
+                   bk, bp, TOL_F32, 1e-3)
+
+    split = [(xs[a:b].float().cpu().numpy(), ys[a:b].cpu().numpy())
+             for a, b in ((0, 2048), (2048, 2560), (2560, 3072))]
+    res = train_pose_model(*split, Config(model=cfg, train=TrainConfig(
+        batch_size=TRAIN_BATCH, num_epochs=1)), device=dev)
+    if (res.epochs_run != 1 or res.predictions.shape != (512, kp, 2)
+            or not all(map(math.isfinite, res.test_metrics.values()))):
+        raise AssertionError(f"train_pose_model: {res.epochs_run} epochs, "
+                             f"{res.predictions.shape}, {res.test_metrics}")
+    log(f"  train_pose_model: 1 epoch in {res.wall_clock_sec:.2f} s, test "
+        f"{json.dumps(res.test_metrics)}")
+    return state, xs[:TRAIN_BATCH], ys[:TRAIN_BATCH], launches
+
+
+# Classes of device kernels in the train step's profile, by a word in the
+# kernel's name (first match wins).
+KERNEL_CLASSES = (
+    ("the port's train kernels", ("core_forward_kernel",
+                                  "core_backward_kernel",
+                                  "sums_forward_kernel",
+                                  "sums_backward_kernel", "reduce_columns")),
+    ("convolutions (cuDNN)", ("conv", "cudnn", "xmma", "implicit", "wgrad",
+                              "dgrad", "fprop")),
+    ("matmuls", ("gemm", "cutlass")),
+    ("optimizer and clip (foreach)", ("multi_tensor", "foreach")),
+    ("reductions", ("reduce",)),
+    ("elementwise", ("elementwise", "vectorized")),
+    ("copies and fills", ("memcpy", "memset", "copy", "fill", "catarray")),
+)
+
+
+def profile_step(step, step_ms: float, runs: int = 5, top: int = 20) -> None:
+    """Log the device time of ``step()`` (``torch.profiler``, per step):
+    the device's busy and idle shares of the step, the time by class of
+    kernel and the largest kernels.  Only device-side kernels and copies
+    count: the CPU ops that launch them, and the device-side spans of
+    ``record_function`` annotations (``Optimizer.step``), carry the same
+    time again."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            step()
+        torch.cuda.synchronize()
+    rows = []
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CPU
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            rows.append((us / runs / 1e3, e.count / runs, e.key))
+    if not rows:
+        log("  torch.profiler recorded no device time")
+        return
+    busy = sum(r[0] for r in rows)
+    log(f"  torch.profiler, {runs} steps: device busy {busy:.4f} ms per "
+        f"step = {busy / step_ms:.1%} of the {step_ms:.4f} ms step (idle "
+        f"{1 - busy / step_ms:.1%}), {sum(r[1] for r in rows):g} device "
+        f"events per step")
+    by_class = {}
+    for ms, count, key in rows:
+        name = key.lower()
+        cls = next((c for c, words in KERNEL_CLASSES
+                    if any(w in name for w in words)), "other")
+        t, n = by_class.get(cls, (0.0, 0.0))
+        by_class[cls] = (t + ms, n + count)
+    for cls, (ms, count) in sorted(by_class.items(), key=lambda r: -r[1][0]):
+        log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {cls}")
+    log("  largest kernels by self device time:")
+    for ms, count, key in sorted(rows, reverse=True)[:top]:
+        log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {key[:90]}")
+
+
+def train_timings(state, xb, yb, main16, c, g, launches, errs):
+    """Phase 7: the train step, then each train kernel alone (both axes,
+    as one train step launches it) against its plain version, its bound
+    and, for ``axial_core``, ``scaled_dot_product_attention``."""
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    from wiflow_tpu_torch.train.steps import train_step
+    log(f"phase 7: train timings (CUDA events, median of {RUNS})")
+
+    def kernel_step():
+        train_step(state, xb, yb)
+
+    def plain_step():
+        with plain_attention():
+            train_step(state, xb, yb)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    kernel_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    # The step waits on the host's launches, whose pace drifts within a
+    # run: time the two paths in turns (kernels, plain, plain, kernels, ...)
+    # and compare each round's pair.  Each turn also reads the host's time
+    # until train_step returns (it holds no sync: the time to enqueue it).
+    turns = {"kernels": [], "plain": []}
+    for r in range(STEP_ROUNDS):
+        for name in ("kernels", "plain")[::1 if r % 2 == 0 else -1]:
+            turns[name].append(time_step_ms(
+                kernel_step if name == "kernels" else plain_step, RUNS // 2))
+    step_ms = statistics.median(t for t, _ in turns["kernels"])
+    plain_step_ms = statistics.median(t for t, _ in turns["plain"])
+    wins = sum(k < p for (k, _), (p, _) in zip(turns["kernels"],
+                                                turns["plain"]))
+    host_share = statistics.median(h / t for t, h in turns["kernels"])
+    log(f"train step bf16 batch {TRAIN_BATCH} (forward, backward, clip, "
+        f"AdamW), median of {STEP_ROUNDS} turns of {RUNS // 2} steps: "
+        f"{step_ms:.4f} ms = {TRAIN_BATCH / step_ms * 1e3:.1f} windows/s; "
+        f"with the plain attention versions: {plain_step_ms:.4f} ms = "
+        f"{TRAIN_BATCH / plain_step_ms * 1e3:.1f} windows/s; the kernels "
+        f"faster in {wins} of {STEP_ROUNDS} rounds; the host's time to "
+        f"enqueue a step {host_share:.1%} of the step; peak device memory "
+        f"of the step {peak / 2**30:.2f} GiB above the {base / 2**30:.2f} "
+        f"GiB held before it")
+    for name, ts in turns.items():
+        log(f"  {name} per turn, step / enqueue ms: "
+            + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
+    profile_step(kernel_step, step_ms)
+
+    def grad_graphs(fn, inputs):
+        """Plain forward graphs to time the plain backward on."""
+        graphs = []
+        for leaves, cot in inputs:
+            leaves = [t.detach().clone().requires_grad_(True) for t in leaves]
+            graphs.append((fn(*leaves), leaves, cot))
+        return lambda: [torch.autograd.grad(o, lv, d, retain_graph=True)
+                        for o, lv, d in graphs]
+
+    core = [((*qkv.split(c, dim=-1), s), d) for qkv, s, d, _ in main16]
+    pairs = [(tuple(qkv.split(c, dim=-1)[:2]), ds)
+             for qkv, _, _, ds in main16]
+    heads, grads = [], []
+    for (q, k, v, s), d in core:
+        n, length, _ = q.shape
+
+        def split_heads(t):
+            return t.reshape(n, length, g, c // g).transpose(1, 2).contiguous()
+        qh = (split_heads(q).float() * s[None, :, None, None]).to(q.dtype)
+        heads.append((qh, split_heads(k), split_heads(v), split_heads(d)))
+        grads.append([t.clone().requires_grad_(True) for t in heads[-1][:3]]
+                     + [heads[-1][3]])
+
+    def sdpa_fwd_bwd():
+        for qh, kh, vh, dh in grads:
+            out = F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+            torch.autograd.grad(out, (qh, kh, vh), dh)
+
+    sums_fn = lambda a, b: tk.logits_sums_plain(a, b, g)  # noqa: E731
+    cases = {
+        "axial_core_fwd": (
+            lambda: [tk.axial_core_forward(*a) for a, _ in core],
+            lambda: [tk.axial_core_plain(*a) for a, _ in core],
+            lambda: [F.scaled_dot_product_attention(qh, kh, vh, scale=1.0)
+                     for qh, kh, vh, _ in heads]),
+        "axial_core_bwd": (
+            lambda: [tk.axial_core_backward(*a, d) for a, d in core],
+            grad_graphs(tk.axial_core_plain, core), sdpa_fwd_bwd),
+        "logits_sums_fwd": (
+            lambda: [tk.logits_sums_forward(*a, g) for a, _ in pairs],
+            lambda: [sums_fn(*a) for a, _ in pairs], None),
+        "logits_sums_bwd": (
+            lambda: [tk.logits_sums_backward(*a, d) for a, d in pairs],
+            grad_graphs(sums_fn, pairs), None),
+    }
+    shapes = [(qkv.shape[0], qkv.shape[1]) for qkv, *_ in main16]
+    record = []
+    for name, (kfn, pfn, lfn) in cases.items():
+        ms = time_ms(kfn, RUNS)
+        plain_ms = time_ms(pfn, max(3, RUNS // 4))
+        lib_ms = time_ms(lfn, RUNS) if lfn else None
+        flops, nbytes = train_work(name, shapes, c, g, 2)
+        bms, by = bound_ms(flops, nbytes, torch.bfloat16)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"  {name} (both axes): kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib}, bound "
+            f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e9:.4f} GB)")
+        kern = getattr(tk, KERNEL_ATTRS[name])
+        record.append({"name": name, "route": "cuda", "source": kern.source,
+                       "replaces": kern.replaces, "launches": launches[name],
+                       "max_abs_err": errs[name], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib_ms})
+    share = sum(r["ms"] for r in record)
+    log(f"  the four train kernels alone: {share:.4f} ms = "
+        f"{share / step_ms:.1%} of the train step")
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -172,6 +672,7 @@ def main() -> int:
     from wiflow_tpu_torch.models.torch_compat import load_state_dict
     from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
     from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as train_k
     from wiflow_tpu_torch.ops.kernels import build as kbuild
     from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
     from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
@@ -186,16 +687,18 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     kernels = {"tcn_level": tcn_k.KERNEL, "conv_stack": conv_k.KERNEL,
                "axial_attention": attn_k.KERNEL}
+    all_kernels = {**kernels, **{n: getattr(train_k, a)
+                                 for n, a in KERNEL_ATTRS.items()}}
+    libraries = sorted({k.name for k in all_kernels.values()})
     t0 = time.perf_counter()
-    secs = kbuild.build(kernels)
+    secs = kbuild.build(libraries)
     log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
-    for name in kernels:
-        path = kbuild.BUILD_DIR / f"{name}.log"
-        for line in path.read_text().splitlines() if path.exists() else []:
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
-    for k in kernels.values():
+    for lib in libraries:
+        path = kbuild.BUILD_DIR / f"{lib}.log"
+        for fn, line in ptxas_report(path.read_text()):
+            log(f"  ptxas {lib} {fn}: {line}")
+    for k in all_kernels.values():
         k.load()
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -263,7 +766,7 @@ def main() -> int:
 
         # -- phase 3: the slice end to end ----------------------------------
         log(f"phase 3: fast_forward at batch {b} (bf16) and streaming")
-        for k in kernels.values():
+        for k in all_kernels.values():
             k.launches = 0
         out16 = fast_forward(packed16, x32)
         torch.cuda.synchronize()
@@ -292,7 +795,7 @@ def main() -> int:
                              generator=sgen, device=dev)
         infer = make_stream_infer(lambda w: fast_forward(packed16, w),
                                   device=dev)
-        for k in kernels.values():
+        for k in all_kernels.values():
             k.launches = 0
         poses = infer(stream)
         torch.cuda.synchronize()
@@ -359,6 +862,13 @@ def main() -> int:
             f"copies, launch gaps): {rest:.4f} ms")
         log(f"peak device memory: "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    # -- phases 5-7: the training path ---------------------------------------
+    c, g = cfg16.conv_channels[-1], cfg16.attention_groups
+    main16, train_errs = check_train_kernels(dev, c, g)
+    state, xb, yb, train_launches = train_slice(dev, all_kernels)
+    record += train_timings(state, xb, yb, main16, c, g, train_launches,
+                            train_errs)
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -12,9 +12,10 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from wiflow_tpu.core.config import ModelConfig as JaxModelConfig
+from wiflow_tpu.core import config as jax_config
 from wiflow_tpu.models.wiflow import WiFlowPoseModel as JaxModel
 
+from wiflow_tpu_torch.core import config as port_config_module
 from wiflow_tpu_torch.core.config import ModelConfig
 
 # fp32 tolerance tests/test_fast_path.py uses for the same kernels
@@ -62,10 +63,22 @@ def port_config(jcfg) -> ModelConfig:
                           for f in dataclasses.fields(ModelConfig)})
 
 
+def _assert_same_defaults(port, ref, path):
+    for f in dataclasses.fields(port):
+        got, want = getattr(port, f.name), getattr(ref, f.name)
+        if dataclasses.is_dataclass(got):
+            _assert_same_defaults(got, want, f"{path}.{f.name}")
+        else:
+            assert got == want, f"{path}.{f.name}"
+
+
 def test_port_defaults_equal_jax_defaults():
-    jcfg = JaxModelConfig()
-    for f in dataclasses.fields(ModelConfig):
-        assert getattr(ModelConfig(), f.name) == getattr(jcfg, f.name), f.name
+    for name in ("ModelConfig", "LossConfig", "OptimConfig", "TrainConfig",
+                 "Config"):
+        _assert_same_defaults(getattr(port_config_module, name)(),
+                              getattr(jax_config, name)(), name)
+    assert port_config_module.SKELETON_CONNECTIONS == \
+        jax_config.SKELETON_CONNECTIONS
 
 
 def test_nontrivial_stats_moves_every_running_stat():

@@ -13,7 +13,11 @@ from wiflow_tpu_torch.core.config import ModelConfig, resolve_device
 from wiflow_tpu_torch.eval.streaming import make_stream_infer
 from wiflow_tpu_torch.models.fast import pack_fast
 from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
-from wiflow_tpu_torch.ops.kernels import axial_attention, conv_stack, tcn_level
+from wiflow_tpu_torch.ops.kernels import (
+    axial_attention, axial_attention_train, conv_stack, tcn_level,
+)
+from wiflow_tpu_torch.train.loop import train_pose_model
+from wiflow_tpu_torch.train.steps import create_train_state
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SMALL = ModelConfig(num_subcarriers=40, tcn_channels=(40, 240), tcn_groups=4,
@@ -103,3 +107,39 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="CSI windows"):
         from wiflow_tpu_torch.models.fast import fast_forward
         fast_forward(packed, x[:, :30])
+
+
+def test_train_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        create_train_state(SMALL)
+    data = (np.zeros((4, 40, 20), np.float32), np.zeros((4, 15, 2),
+                                                           np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train_pose_model(data, data, data)
+    state = create_train_state(SMALL, device="cpu")
+    assert state.model.training
+    assert next(state.model.parameters()).device.type == "cpu"
+
+
+@pytest.mark.parametrize("kernel", axial_attention_train.KERNELS,
+                         ids=lambda k: k.symbol)
+def test_train_kernel_refuses_instead_of_computing_on_the_cpu(kernel):
+    """Asked for the card where there is none, a train kernel raises."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel.load()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel.launch()
+    assert kernel.launches == 0
+
+
+def test_train_wrappers_reject_other_devices():
+    meta = torch.empty(3, 20, 16, device="meta")
+    scale = torch.ones(2, device="meta")
+    with pytest.raises(ValueError, match="meta"):
+        axial_attention_train.axial_core(meta, meta, meta, scale)
+    with pytest.raises(ValueError, match="meta"):
+        axial_attention_train.logits_sums(meta, meta, 2)

@@ -1,5 +1,6 @@
-"""WiFlow on PyTorch and CUDA: the serving path of ``wiflow_tpu`` ported to one
-NVIDIA H100, with hand-written Hopper kernels for its fused TPU kernels.
+"""WiFlow on PyTorch and CUDA: the serving and training paths of
+``wiflow_tpu`` ported to one NVIDIA H100, with hand-written Hopper kernels
+for the TPU kernels those paths run.
 
 The package imports ``torch``, numpy and the standard library only; the
 JAX package ``wiflow_tpu`` stays the numerical reference (tests compare the

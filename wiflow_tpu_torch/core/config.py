@@ -1,23 +1,33 @@
-"""Model configuration for the port's serving path.
+"""Configuration of the port: model, loss, optimizer and training run.
 
-A copy of the fields of ``wiflow_tpu.core.config.ModelConfig`` that the
-eval module and ``models/fast.py`` read, with the same defaults (the
-reference architecture, ref models/pose_model.py:16-53).  The JAX
-package's config module is not imported: importing anything under
-``wiflow_tpu`` runs its package ``__init__``, which loads JAX.
+A copy of the fields of ``wiflow_tpu.core.config`` that the port reads,
+with the same defaults (the reference architecture and trainer, ref
+models/pose_model.py:16-53 and train.py:105-121).  The JAX package's
+config module is not imported: importing anything under ``wiflow_tpu``
+runs its package ``__init__``, which loads JAX.  TPU lowering switches
+(``*_impl``, ``rng_impl``, ``scan_epochs``, ``max_steps_per_call``,
+``tcn_matmul``) have no counterpart here.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
+
+# 14-edge skeleton over the 15 retained OpenPose keypoints
+# (ref config.py:30-34 and losses/pose_loss.py:20-24).
+SKELETON_CONNECTIONS: Tuple[Tuple[int, int], ...] = (
+    (0, 1), (1, 8), (1, 2), (2, 3), (3, 4),
+    (1, 5), (5, 6), (6, 7), (8, 9), (8, 12),
+    (9, 10), (10, 11), (12, 13), (13, 14),
+)
 
 
 @dataclasses.dataclass(frozen=True)
 class ModelConfig:
-    """WiFlow model hyperparameters (serving subset)."""
+    """WiFlow model hyperparameters."""
 
     num_subcarriers: int = 540
     window_size: int = 20
@@ -28,12 +38,77 @@ class ModelConfig:
     tcn_groups: int = 20
     conv_channels: Sequence[int] = (8, 16, 32, 64)
     attention_groups: int = 8
+    dropout: float = 0.5                    # TCN levels (ref train.py:88)
+    conv_dropout: float = 0.3               # conv blocks' Dropout2d
     # compute dtype for the forward pass; parameters stay fp32
     compute_dtype: str = "bfloat16"
 
     @property
     def dtype(self) -> torch.dtype:
         return getattr(torch, self.compute_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Pose loss (ref losses/pose_loss.py:8-17, train.py:99-103)."""
+
+    position_weight: float = 1.0
+    bone_weight: float = 0.2
+    loss_type: str = "smooth_l1"            # 'mse' | 'l1' | 'smooth_l1'
+    position_beta: float = 0.1
+    bone_beta: float = 0.05
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimConfig:
+    """AdamW, global-norm clip and the LR schedules (ref train.py:105-121).
+
+    ``kind`` 'adam' and 'sgd' belong to the baselines, which are not
+    ported yet.  The plateau scheduler follows torch's
+    ``ReduceLROnPlateau``; its patience, like the early stop's, may be
+    given in optimizer steps (``plateau_patience_steps``), see
+    ``train/loop.py::scaled_patience``.
+    """
+
+    lr: float = 1e-4
+    weight_decay: float = 5e-5
+    betas: Tuple[float, float] = (0.9, 0.999)
+    grad_clip_norm: Optional[float] = 1.0   # None or <= 0: no clipping
+    kind: str = "adamw"
+    schedule: str = "plateau"               # | 'linear_decay' | 'multistep'
+    decay_start: int = 20
+    decay_end: int = 50
+    milestones: Tuple[int, ...] = (20, 40)
+    gamma: float = 0.1
+    plateau_factor: float = 0.5
+    plateau_patience: int = 3
+    plateau_threshold: float = 1e-4         # threshold_mode 'rel'
+    plateau_cooldown: int = 1
+    min_lr_ratio: float = 1e-3              # min_lr = lr / 1000
+    # 252k train windows / batch 64 = 3937 steps per epoch, x3 epochs
+    plateau_patience_steps: Optional[int] = 3 * 3937
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """One training run (ref config.py:18-19, train.py:145,382)."""
+
+    batch_size: int = 64
+    grad_accum_steps: int = 1               # effective = batch * accum
+    num_epochs: int = 50
+    patience: int = 5                       # early stop on val MPE
+    patience_steps: Optional[int] = 5 * 3937
+    seed: int = 42
+    # val/test batches are batch // 2 and drop the last partial batch
+    drop_last_eval: bool = True
+    optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
+    loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+
+
+@dataclasses.dataclass(frozen=True)
+class Config:
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -51,3 +126,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def device_constant(values, device: torch.device,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """A small constant (indices, thresholds) on ``device`` without a host
+    sync: ``torch.tensor(values, device="cuda")`` copies from pageable
+    memory and waits for the stream, so on CUDA the values go through
+    pinned memory and an asynchronous copy."""
+    t = torch.tensor(values, dtype=dtype)
+    if device.type == "cuda":
+        t = t.pin_memory().to(device, non_blocking=True)
+    return t

@@ -1,8 +1,12 @@
 """Building blocks with torch ``state_dict`` names.
 
-Counterpart of ``wiflow_tpu/models/layers.py``, eval mode only: the
-training slice adds train-mode BatchNorm (batch statistics, running
-update) and dropout.
+Counterpart of ``wiflow_tpu/models/layers.py``: BatchNorm in train and
+eval mode, dropout and channel dropout, SiLU.
+
+Dropout draws its keep bits from a ``torch.Generator`` that the model
+holds (``WiFlowPoseModel.dropout_generator``, on the model's device) and
+hands to every dropout module when it builds them; seeding that one
+generator fixes every mask of a run.
 """
 
 from __future__ import annotations
@@ -10,7 +14,9 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from wiflow_tpu_torch.ops.norm import batch_norm_eval
+from wiflow_tpu_torch.ops.norm import (
+    batch_norm_eval, batch_norm_train, dropout, dropout2d, running_update,
+)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -23,7 +29,8 @@ class TorchBatchNorm(nn.Module):
     Holds exactly the parameters and buffers of torch's ``BatchNorm1d`` /
     ``BatchNorm2d`` (``weight``, ``bias``, ``running_mean``,
     ``running_var``, ``num_batches_tracked``), so reference checkpoints
-    load by name.  Only eval mode is implemented.
+    load by name.  In train mode it normalizes with the batch statistics
+    and updates the running ones in place, as torch does.
     """
 
     def __init__(self, features: int, *, device=None):
@@ -36,9 +43,45 @@ class TorchBatchNorm(nn.Module):
         self.register_buffer("num_batches_tracked",
                              torch.zeros((), dtype=torch.long, device=device))
 
+    @torch.no_grad()
+    def track(self, mean: torch.Tensor, var: torch.Tensor,
+              count: int) -> None:
+        """Move the running statistics toward a batch's ``mean`` and biased
+        ``var`` over ``count`` elements per channel."""
+        new_mean, new_var = running_update(self.running_mean,
+                                           self.running_var, mean, var, count)
+        self._store(new_mean, new_var)
+
+    @torch.no_grad()
+    def _store(self, new_mean: torch.Tensor, new_var: torch.Tensor) -> None:
+        self.running_mean.copy_(new_mean)
+        self.running_var.copy_(new_var)
+        self.num_batches_tracked.add_(1)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm is not ported yet; call .eval()")
+            y, new_mean, new_var = batch_norm_train(
+                x, self.weight, self.bias, self.running_mean,
+                self.running_var)
+            self._store(new_mean, new_var)
+            return y
         return batch_norm_eval(x, self.running_mean, self.running_var,
                                self.weight, self.bias)
+
+
+class TorchDropout(nn.Module):
+    """Elementwise dropout (torch ``nn.Dropout``); identity in eval mode."""
+
+    def __init__(self, rate: float, generator: torch.Generator | None):
+        super().__init__()
+        self.rate, self.generator = rate, generator
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout(x, self.rate, self.generator) if self.training else x
+
+
+class TorchDropout2d(TorchDropout):
+    """Channel dropout (torch ``nn.Dropout2d``) on ``[B, H, W, C]``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return dropout2d(x, self.rate, self.generator) if self.training else x

@@ -1,17 +1,20 @@
-"""WiFlow pose model in eval mode, as ``nn.Module``s.
+"""WiFlow pose model, as ``nn.Module``s, in train and eval mode.
 
-Counterpart of ``wiflow_tpu/models/wiflow.py::WiFlowPoseModel`` with
-``train=False``: ``[B, 540, 20]`` CSI windows -> ``[B, 15, 2]`` keypoints
-through the grouped dilated TCN, the (1,3) conv stack, dual axial
-attention and the conv decoder.  Parameter and buffer names are the
-reference torch ``state_dict`` names (``models/torch_compat.py``), so JAX
-exports and reference checkpoints load by name.
+Counterpart of ``wiflow_tpu/models/wiflow.py::WiFlowPoseModel``:
+``[B, 540, 20]`` CSI windows -> ``[B, 15, 2]`` keypoints through the
+grouped dilated TCN, the (1,3) conv stack, dual axial attention and the
+conv decoder.  Parameter and buffer names are the reference torch
+``state_dict`` names (``models/torch_compat.py``), so JAX exports and
+reference checkpoints load by name; dropout holds no parameters, so the
+train and eval modules have the same ``state_dict``.
 
-This module is the plain reference of the port: every step is a stock
-torch op.  Serving goes through ``models/fast.py::fast_forward``, which
-folds the BatchNorms and runs the hand-written kernels.  Train mode
-(batch-statistic BN, dropout) is the training slice's work; ``forward``
-raises unless the module is in eval mode.
+In eval mode every step is a stock torch op: this is the plain reference
+of the serving path, which goes through ``models/fast.py::fast_forward``.
+In train mode (``model.train()``) BatchNorm uses batch statistics and
+updates its running ones, dropout is on, and the attention core and the
+batch moments of its logits run through the train kernels of
+``ops/kernels/axial_attention_train.py`` (their plain versions on a CPU
+tensor).  Dropout draws from ``WiFlowPoseModel.dropout_generator``.
 """
 
 from __future__ import annotations
@@ -22,10 +25,15 @@ import torch
 from torch import nn
 
 from wiflow_tpu_torch.core.config import ModelConfig, resolve_device
-from wiflow_tpu_torch.models.layers import TorchBatchNorm, silu
+from wiflow_tpu_torch.models.layers import (
+    TorchBatchNorm, TorchDropout, TorchDropout2d, silu,
+)
 from wiflow_tpu_torch.ops.conv import (
     causal_grouped_conv1d, conv1x1_2d, conv1xk_w, conv3x3_2d,
     pointwise_conv1d,
+)
+from wiflow_tpu_torch.ops.kernels.axial_attention_train import (
+    axial_core, logits_moments_fused,
 )
 from wiflow_tpu_torch.ops.norm import EPS
 
@@ -34,7 +42,8 @@ class TCNLevel(nn.Module):
     """One dilated grouped temporal block (ref models/tcn.py:14-74)."""
 
     def __init__(self, n_in: int, n_out: int, kernel_size: int,
-                 dilation: int, groups: int, *, device=None):
+                 dilation: int, groups: int, dropout: float = 0.0,
+                 generator: torch.Generator | None = None, *, device=None):
         super().__init__()
         self.dilation, self.groups = dilation, groups
         k = kernel_size
@@ -48,6 +57,8 @@ class TCNLevel(nn.Module):
         self.bn2_group = TorchBatchNorm(n_out, device=device)
         self.conv2_pw = nn.Conv1d(n_out, n_out, 1, bias=False, device=device)
         self.bn2_pw = TorchBatchNorm(n_out, device=device)
+        self.dropout1 = TorchDropout(dropout, generator)
+        self.dropout2 = TorchDropout(dropout, generator)
         self.downsample = None
         if n_in != n_out:
             self.downsample = nn.Sequential(
@@ -64,11 +75,13 @@ class TCNLevel(nn.Module):
         out = causal_grouped_conv1d(x, self.conv1_group.weight,
                                     dilation=self.dilation, groups=self.groups)
         out = silu(self.bn1_group(out))
-        out = silu(self.bn1_pw(pointwise_conv1d(out, self.conv1_pw.weight)))
+        out = self.dropout1(silu(self.bn1_pw(
+            pointwise_conv1d(out, self.conv1_pw.weight))))
         out = causal_grouped_conv1d(out, self.conv2_group.weight,
                                     dilation=self.dilation, groups=self.groups)
         out = silu(self.bn2_group(out))
-        out = silu(self.bn2_pw(pointwise_conv1d(out, self.conv2_pw.weight)))
+        out = self.dropout2(silu(self.bn2_pw(
+            pointwise_conv1d(out, self.conv2_pw.weight))))
         return silu(out + res)
 
 
@@ -76,12 +89,13 @@ class TCNStack(nn.Module):
     """Levels with dilation ``2**i`` (ref models/tcn.py:76-97)."""
 
     def __init__(self, num_inputs: int, num_channels, kernel_size: int,
-                 groups: int, *, device=None):
+                 groups: int, dropout: float = 0.0,
+                 generator: torch.Generator | None = None, *, device=None):
         super().__init__()
         levels, n_in = [], num_inputs
         for i, n_out in enumerate(num_channels):
             levels.append(TCNLevel(n_in, n_out, kernel_size, 2 ** i, groups,
-                                   device=device))
+                                   dropout, generator, device=device))
             n_in = n_out
         self.network = nn.Sequential(*levels)
 
@@ -95,11 +109,12 @@ class ConvBlock(nn.Module):
     ``stride_w=2`` is the reference's ``AsymmetricConvBlock``,
     ``stride_w=1`` its ``ConvBlock1``.  ``block`` keeps the reference's
     ``nn.Sequential`` indices (conv 0/4/8, BN 1/5/9); the SiLU and
-    Dropout2d slots between them hold no parameters.
+    Dropout2d slots between them (2/6 and 3/7) hold no parameters.
     """
 
-    def __init__(self, n_in: int, n_out: int, stride_w: int = 1, *,
-                 device=None):
+    def __init__(self, n_in: int, n_out: int, stride_w: int = 1,
+                 dropout: float = 0.0,
+                 generator: torch.Generator | None = None, *, device=None):
         super().__init__()
         self.stride_w = stride_w
 
@@ -109,9 +124,9 @@ class ConvBlock(nn.Module):
 
         self.block = nn.Sequential(
             conv(n_in), TorchBatchNorm(n_out, device=device), nn.SiLU(),
-            nn.Identity(),
+            TorchDropout2d(dropout, generator),
             conv(n_out), TorchBatchNorm(n_out, device=device), nn.SiLU(),
-            nn.Identity(),
+            TorchDropout2d(dropout, generator),
             conv(n_out), TorchBatchNorm(n_out, device=device))
         self.downsample = nn.Sequential(
             nn.Conv2d(n_in, n_out, 1, bias=False, device=device),
@@ -127,18 +142,22 @@ class ConvBlock(nn.Module):
             out = self.block[i + 1](conv1xk_w(out, c.weight, c.bias,
                                               stride=stride))
             if i < 8:
-                out = silu(out)
+                out = self.block[i + 3](silu(out))
         return silu(out + identity)
 
 
 class AxialAttention(nn.Module):
     """Grouped single-axis attention with BN on the logits
-    (ref models/attention.py:7-80), eval mode.
+    (ref models/attention.py:7-80).
 
     Input is channel-last ``[B, H, W, C]``; ``width=True`` attends along W.
     The logits BN's mean and bias are constant along the softmax axis and
     cancel, so only its scale ``gamma / sqrt(var + eps)`` is applied
-    (``wiflow_tpu/models/wiflow.py::LogitsBNScale``).
+    (``wiflow_tpu/models/wiflow.py::LogitsBNScale``).  In train mode the
+    variance is the batch's, from the sums of the logits and their squares
+    (no logits in memory); ``bn_similarity``'s running statistics move with
+    the unbiased variance over ``count = n * L * L`` logits per group, and
+    its bias, which cancels, gets no gradient.
     """
 
     def __init__(self, planes: int, groups: int, width: bool, *,
@@ -152,9 +171,6 @@ class AxialAttention(nn.Module):
         self.bn_output = TorchBatchNorm(planes, device=device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.training:
-            raise NotImplementedError(
-                "train-mode attention is not ported yet; call .eval()")
         b, h, w, c = x.shape
         if self.width:
             xr = x.reshape(b * h, w, c)
@@ -163,14 +179,23 @@ class AxialAttention(nn.Module):
         n, length, _ = xr.shape
         g, gp = self.groups, self.planes // self.groups
         qkv = self.bn_qkv(pointwise_conv1d(xr, self.qkv_transform.weight))
-        q, k, v = (t.reshape(n, length, g, gp)
-                   for t in torch.split(qkv, self.planes, dim=-1))
         bns = self.bn_similarity
-        scale = bns.weight.float() * torch.rsqrt(bns.running_var.float() + EPS)
-        logits = torch.einsum("bigc,bjgc->bgij", q.float(), k.float())
-        sim = torch.softmax(logits * scale[None, :, None, None], dim=-1)
-        out = torch.einsum("bgij,bjgc->bigc", sim.to(x.dtype).float(),
-                           v.float()).to(x.dtype)
+        if self.training:
+            q, k, v = torch.split(qkv, self.planes, dim=-1)
+            count = n * length * length
+            mean, var = logits_moments_fused(q, k, g, count)
+            bns.track(mean.detach(), var.detach(), count)
+            scale = bns.weight.float() * torch.rsqrt(var + EPS)
+            out = axial_core(q, k, v, scale)
+        else:
+            q, k, v = (t.reshape(n, length, g, gp)
+                       for t in torch.split(qkv, self.planes, dim=-1))
+            scale = bns.weight.float() * torch.rsqrt(
+                bns.running_var.float() + EPS)
+            logits = torch.einsum("bigc,bjgc->bgij", q.float(), k.float())
+            sim = torch.softmax(logits * scale[None, :, None, None], dim=-1)
+            out = torch.einsum("bgij,bjgc->bigc", sim.to(x.dtype).float(),
+                               v.float()).to(x.dtype)
         out = self.bn_output(out.reshape(n, length, self.planes))
         if self.width:
             return out.reshape(b, h, w, self.planes)
@@ -191,12 +216,14 @@ class DualAxialAttention(nn.Module):
 
 
 class WiFlowPoseModel(nn.Module):
-    """Full WiFlow encoder-decoder (ref models/pose_model.py:9-97), eval.
+    """Full WiFlow encoder-decoder (ref models/pose_model.py:9-97).
 
     Built on ``device`` (CUDA unless ``device="cpu"``) in eval mode, with
     parameters drawn from ``generator`` (a CPU ``torch.Generator``; the
     reference's init: kaiming-normal fan-out for Conv1d, torch's default
-    uniform for Conv2d, BN at identity).
+    uniform for Conv2d, BN at identity).  ``dropout_generator``, on the
+    model's device, draws every dropout mask in train mode; seed it
+    (``manual_seed``) to fix them.
     """
 
     def __init__(self, config: ModelConfig = ModelConfig(), *, device=None,
@@ -204,13 +231,16 @@ class WiFlowPoseModel(nn.Module):
         super().__init__()
         cfg = self.config = config
         dev = resolve_device(device)
+        gen = self.dropout_generator = torch.Generator(device=dev)
         self.tcn = TCNStack(cfg.num_subcarriers, tuple(cfg.tcn_channels),
-                            cfg.tcn_kernel_size, cfg.tcn_groups, device=dev)
+                            cfg.tcn_kernel_size, cfg.tcn_groups, cfg.dropout,
+                            gen, device=dev)
         chans = tuple(cfg.conv_channels)
-        self.up = ConvBlock(1, chans[0], stride_w=1, device=dev)
+        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev)
         blocks, n_in = [], chans[0]
         for n_out in chans:
-            blocks.append(ConvBlock(n_in, n_out, stride_w=2, device=dev))
+            blocks.append(ConvBlock(n_in, n_out, 2, cfg.conv_dropout, gen,
+                                    device=dev))
             n_in = n_out
         self.residual_blocks = nn.ModuleList(blocks)
         c = chans[-1]

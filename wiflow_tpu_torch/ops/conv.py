@@ -63,9 +63,14 @@ def conv1xk_w(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, *,
 def conv1x1_2d(x: torch.Tensor, w: torch.Tensor,
                b: Optional[torch.Tensor] = None, *,
                stride_w: int = 1) -> torch.Tensor:
-    """1x1 Conv2d, optionally strided along W; ``w [Co, Ci, 1, 1]``."""
+    """1x1 Conv2d, optionally strided along W; ``w [Co, Ci, 1, 1]``.
+
+    The stride is taken as a slice of W before the conv: the same values,
+    and torch 2.13's CPU backward of a strided 1x1 conv on a channel-last
+    input corrupts the heap.
+    """
     bias = None if b is None else b.to(x.dtype)
-    return _cl(F.conv2d(_cf(x), w.to(x.dtype), bias, stride=(1, stride_w)))
+    return _cl(F.conv2d(_cf(x[:, :, ::stride_w]), w.to(x.dtype), bias))
 
 
 def conv3x3_2d(x: torch.Tensor, w: torch.Tensor,

@@ -1,8 +1,11 @@
-"""Eval-mode BatchNorm with torch numerics (eps 1e-5), as plain functions.
+"""BatchNorm with torch numerics (eps 1e-5, momentum 0.1) and dropout, as
+plain functions.
 
-Counterpart of ``wiflow_tpu/ops/norm.py::batch_norm_eval`` and of the
-``bn_affine`` fold in ``wiflow_tpu/ops/pallas/axial_attention.py:85-88``.
-Train-mode BatchNorm belongs to the training slice and is not here.
+Counterpart of ``wiflow_tpu/ops/norm.py`` and of the ``bn_affine`` fold in
+``wiflow_tpu/ops/pallas/axial_attention.py:85-88``.  Activations are
+channel-last.  Train-mode BN normalizes with the biased batch variance and
+moves the running statistics with the unbiased one:
+``running <- 0.9 * running + 0.1 * batch``.
 """
 
 from __future__ import annotations
@@ -12,6 +15,7 @@ from typing import Tuple
 import torch
 
 EPS = 1e-5
+MOMENTUM = 0.1
 
 
 def bn_affine(gamma: torch.Tensor, beta: torch.Tensor, mean: torch.Tensor,
@@ -41,3 +45,63 @@ def batch_norm_eval(x: torch.Tensor, mean: torch.Tensor, var: torch.Tensor,
     """
     a = (gamma.float() * torch.rsqrt(var.float() + EPS)).to(x.dtype)
     return (x - mean.to(x.dtype)) * a + beta.to(x.dtype)
+
+
+def running_update(running_mean: torch.Tensor, running_var: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor, count: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """torch's running-statistics step from a batch's biased ``var`` over
+    ``count`` elements per channel."""
+    unbiased = var * (count / max(count - 1, 1))
+    return ((1.0 - MOMENTUM) * running_mean + MOMENTUM * mean,
+            (1.0 - MOMENTUM) * running_var + MOMENTUM * unbiased)
+
+
+def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+                     running_mean: torch.Tensor, running_var: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Training-mode BN over the last axis.
+
+    Returns ``(y, new_running_mean, new_running_var)``; ``y`` is
+    differentiable through the batch moments, the running statistics are
+    detached.  The moments are fp32, the variance ``E[x^2] - mean^2`` (the
+    JAX formula, kept for parity).
+    """
+    axes = tuple(range(x.ndim - 1))
+    xf = x.float()
+    mean = xf.mean(dim=axes)
+    var = (xf * xf).mean(dim=axes) - mean * mean
+    a = (gamma.float() * torch.rsqrt(var + EPS)).to(x.dtype)
+    y = (x - mean.to(x.dtype)) * a + beta.to(x.dtype)
+    count = x.numel() // x.shape[-1]
+    new_mean, new_var = running_update(running_mean, running_var,
+                                       mean.detach(), var.detach(), count)
+    return y, new_mean, new_var
+
+
+def _keep_mask(shape, keep: float, device: torch.device,
+               generator: torch.Generator) -> torch.Tensor:
+    return torch.rand(shape, generator=generator, device=device) < keep
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """Elementwise dropout with inverted scaling (torch ``nn.Dropout``),
+    its keep bits drawn from ``generator`` (on ``x``'s device)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = _keep_mask(x.shape, keep, x.device, generator)
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
+def dropout2d(x: torch.Tensor, rate: float,
+              generator: torch.Generator) -> torch.Tensor:
+    """Channel dropout (torch ``nn.Dropout2d``) on ``x [B, H, W, C]``: one
+    keep bit per (sample, channel), shared over (H, W)."""
+    if rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    b, _, _, c = x.shape
+    mask = _keep_mask((b, 1, 1, c), keep, x.device, generator)
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
