@@ -7,7 +7,7 @@ their kernels.
 Phases (any failure exits nonzero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the five CUDA libraries from ``wiflow_tpu_torch/csrc``
+   and the build of the seven CUDA libraries from ``wiflow_tpu_torch/csrc``
    (one nvcc each, started together), with ptxas's registers and spills
    under each kernel's name;
 2. each kernel against its plain PyTorch version on the card, at the
@@ -39,7 +39,27 @@ Phases (any failure exits nonzero; nothing is caught):
    kernels and through the plain versions, in alternating turns, the
    host's time to enqueue one step, and a ``torch.profiler`` breakdown of
    the step's device time; each train kernel against its plain version,
-   its bound and ``scaled_dot_product_attention``; peak memory.
+   its bound and ``scaled_dot_product_attention``; peak memory;
+8. the ``stage`` and ``join`` kernels, forward and backward, against their
+   plain versions at the fused train step's shapes for batch 256 (every
+   conv geometry, with prologue, mask and bias as the model uses them) and
+   at 7 samples, which leave the last thread block part-filled: fp32 with
+   TF32 off, the sums and the prologue's gradients also against float64,
+   and bf16 against the fp32 plain version; a second launch of each must
+   repeat the first bit for bit;
+9. the fused training slice: the default ``ModelConfig`` with
+   ``tcn_train_impl = conv_train_impl = "fused"``, trained as in phase 6
+   (one step must launch ``stage`` 39 times and ``join`` 9 times, forward
+   and backward, and each attention kernel twice); one fp32 step with
+   dropout on, from one seed, through the fused path against the same step
+   through the stock-op path, held to twice the step's fp32 rounding noise
+   (measured as stock ops on the card against stock ops on the CPU); one
+   ``train_pose_model`` epoch;
+10. timings: ``stage`` and ``join`` over the launches of one step and per
+   geometry, against their plain versions, their bounds and, where a stage
+   is a bare convolution, ``F.conv1d`` / ``F.conv2d``; the fused step
+   against the stock-op step in alternating turns, and the profiler's
+   breakdown of the fused step.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
@@ -93,6 +113,15 @@ KERNEL_ATTRS = {"axial_core_fwd": "CORE_FORWARD",
                 "logits_sums_fwd": "SUMS_FORWARD",
                 "logits_sums_bwd": "SUMS_BACKWARD"}
 TRAIN_KERNELS = tuple(KERNEL_ATTRS)
+# The stage-fused kernels: their names in the record, and their attributes
+# in ``ops/kernels/stage_fused.py``; their launches in one train step of
+# the default model (TCN: 4 convs a level and a shortcut conv on 3 levels,
+# one join a level; conv stack: 5 blocks of 4 convs and a join).
+STAGE_ATTRS = {"stage_fwd": "STAGE_FORWARD", "stage_bwd": "STAGE_BACKWARD",
+               "join_fwd": "JOIN_FORWARD", "join_bwd": "JOIN_BACKWARD"}
+STAGE_LAUNCHES = {"stage_fwd": 39, "stage_bwd": 39, "join_fwd": 9,
+                  "join_bwd": 9}
+FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 
 
 def log(*a):
@@ -369,29 +398,29 @@ def check_train_kernels(dev, c, g):
     return main16, errs
 
 
-def train_slice(dev, all_kernels):
-    """Phase 6.  Returns the bf16 train state, one batch, and the launches
-    of one train step."""
-    from wiflow_tpu_torch.core.config import (
-        Config, ModelConfig, OptimConfig, TrainConfig,
-    )
-    from wiflow_tpu_torch.train.loop import train_pose_model
-    from wiflow_tpu_torch.train.steps import (
-        create_train_state, make_batch_indices, train_step,
-    )
-    cfg = ModelConfig()
-    log(f"phase 6: training, default ModelConfig ({cfg.compute_dtype}, "
-        f"dropout {cfg.dropout}/{cfg.conv_dropout}), AdamW "
-        f"{OptimConfig().lr:g}, batch {TRAIN_BATCH}, 2 epochs over "
-        f"{TRAIN_WINDOWS} windows")
+def train_data(dev, cfg):
+    """``TRAIN_WINDOWS`` seeded bf16 windows and their targets: a fixed
+    seeded function of the window, to be learned."""
     gen = torch.Generator(device=dev).manual_seed(SEED + 5)
     c_in, kp = cfg.num_subcarriers, cfg.num_keypoints
     xs = torch.randn((TRAIN_WINDOWS, c_in, cfg.window_size), generator=gen,
                      device=dev).to(torch.bfloat16)
-    # targets: a fixed seeded function of the window, to be learned
     proj = torch.randn((c_in, 2 * kp), generator=gen, device=dev) / c_in ** 0.5
     ys = (0.3 * torch.tanh(4.0 * xs.float().mean(dim=2) @ proj)).reshape(
         TRAIN_WINDOWS, kp, 2)
+    return xs, ys
+
+
+def run_training(dev, all_kernels, cfg, xs, ys, expect):
+    """Train ``cfg`` for 2 epochs of 16 steps, then one ``train_pose_model``
+    epoch.  The first step must launch each kernel of ``expect`` that often
+    and no other kernel; the second runs with host syncs forbidden; the loss
+    must descend.  Returns the train state and the first step's launches."""
+    from wiflow_tpu_torch.core.config import Config, OptimConfig, TrainConfig
+    from wiflow_tpu_torch.train.loop import train_pose_model
+    from wiflow_tpu_torch.train.steps import (
+        create_train_state, make_batch_indices, train_step,
+    )
     state = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
     shuffle = torch.Generator().manual_seed(SEED)
     losses, launches = [], None
@@ -407,9 +436,10 @@ def train_slice(dev, all_kernels):
                 launches = {n: k.launches for n, k in all_kernels.items()}
                 log(f"kernels launched by one train step: "
                     f"{json.dumps(launches)}")
-                if any(launches[n] != 2 for n in TRAIN_KERNELS):
-                    raise AssertionError(f"a train kernel did not run twice "
-                                         f"(once per axis): {launches}")
+                want = {n: expect.get(n, 0) for n in all_kernels}
+                if launches != want:
+                    raise AssertionError(f"one train step launched "
+                                         f"{launches}, expected {want}")
             elif len(losses) == 1:
                 # the second step must not wait on the device: torch
                 # raises on any synchronizing call in this mode
@@ -431,37 +461,7 @@ def train_slice(dev, all_kernels):
     if not torch.isfinite(losses).all() or not last < first:
         raise AssertionError("the loss is not finite or did not descend")
 
-    # one fp32 step without dropout, through the kernels and through the
-    # plain versions, from the same seed (cuDNN deterministic, so that the
-    # attention is the only difference)
-    cfg32 = ModelConfig(compute_dtype="float32", dropout=0.0,
-                        conv_dropout=0.0)
-    xb, yb = xs[:TRAIN_BATCH].float(), ys[:TRAIN_BATCH]
-    runs = {}
-    deterministic = torch.backends.cudnn.deterministic
-    torch.backends.cudnn.deterministic = True
-    try:
-        for name, ctx in (("kernels", contextlib.nullcontext()),
-                          ("plain", plain_attention())):
-            st = create_train_state(cfg32, OptimConfig(), seed=SEED,
-                                    device=dev)
-            with ctx:
-                m = train_step(st, xb, yb)
-            runs[name] = (m, {n: p.grad for n, p in
-                              st.model.named_parameters()},
-                          {n: b for n, b in st.model.named_buffers()
-                           if "running" in n})
-    finally:
-        torch.backends.cudnn.deterministic = deterministic
-    (mk, gk, bk), (mp, gp, bp) = runs["kernels"], runs["plain"]
-    for key in ("loss", "position", "bone", "mpe", "grad_norm"):
-        compare(f"train step fp32 {key}, kernels vs plain", mk[key], mp[key],
-                TOL_F32)
-    compare_leaves("train step fp32 gradients, kernels vs plain", gk, gp,
-                   TOL_F32, 1e-2)
-    compare_leaves("train step fp32 running statistics, kernels vs plain",
-                   bk, bp, TOL_F32, 1e-3)
-
+    kp = cfg.num_keypoints
     split = [(xs[a:b].float().cpu().numpy(), ys[a:b].cpu().numpy())
              for a, b in ((0, 2048), (2048, 2560), (2560, 3072))]
     res = train_pose_model(*split, Config(model=cfg, train=TrainConfig(
@@ -472,12 +472,86 @@ def train_slice(dev, all_kernels):
                              f"{res.predictions.shape}, {res.test_metrics}")
     log(f"  train_pose_model: 1 epoch in {res.wall_clock_sec:.2f} s, test "
         f"{json.dumps(res.test_metrics)}")
-    return state, xs[:TRAIN_BATCH], ys[:TRAIN_BATCH], launches
+    return state, launches
+
+
+def fp32_step(dev, cfg, xb, yb, ctx=None):
+    """One fp32 train step of ``cfg`` on ``dev`` with the weights and
+    dropout masks of ``SEED`` (cuDNN deterministic, so that two runs differ
+    only in what is named): its metrics, every gradient leaf and every
+    running statistic."""
+    from wiflow_tpu_torch.core.config import OptimConfig
+    from wiflow_tpu_torch.train.steps import create_train_state, train_step
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        st = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
+        with ctx or contextlib.nullcontext():
+            m = train_step(st, xb.to(dev), yb.to(dev))
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    return (m, {n: p.grad for n, p in st.model.named_parameters()},
+            {n: b for n, b in st.model.named_buffers() if "running" in n})
+
+
+# Floors of ``compare_leaves`` for a train step's gradients and running
+# statistics.
+GRAD_FLOOR, STAT_FLOOR = 1e-2, 1e-3
+
+
+def compare_fp32_steps(what, got, ref, tol=TOL_F32):
+    """Hold one ``fp32_step`` to another: the loss parts to ``TOL_F32``,
+    the gradient norm, every gradient leaf and every running statistic to
+    ``tol``."""
+    (mk, gk, bk), (mp, gp, bp) = got, ref
+    for key in ("loss", "position", "bone", "mpe"):
+        compare(f"train step fp32 {key}, {what}", mk[key], mp[key], TOL_F32)
+    compare(f"train step fp32 grad_norm, {what}", mk["grad_norm"],
+            mp["grad_norm"], tol)
+    compare_leaves(f"train step fp32 gradients, {what}", gk, gp, tol,
+                   GRAD_FLOOR)
+    compare_leaves(f"train step fp32 running statistics, {what}", bk, bp,
+                   tol, STAT_FLOOR)
+
+
+def leaf_noise(got, ref, floor_frac):
+    """The largest error of a leaf of ``got`` against ``ref`` (tensors on
+    any devices), relative to the scale ``compare_leaves`` holds it to."""
+    scale = {n: ref[n].float().abs().max().item() for n in ref}
+    floor = floor_frac * max(scale.values())
+    return max((got[n].float().cpu() - ref[n].float().cpu()).abs().max().item()
+               / max(scale[n], floor) for n in ref)
+
+
+def train_slice(dev, all_kernels):
+    """Phase 6.  Returns the bf16 train state, the training data, and the
+    launches of one train step."""
+    from wiflow_tpu_torch.core.config import ModelConfig, OptimConfig
+    cfg = ModelConfig()
+    log(f"phase 6: training, default ModelConfig ({cfg.compute_dtype}, "
+        f"dropout {cfg.dropout}/{cfg.conv_dropout}), AdamW "
+        f"{OptimConfig().lr:g}, batch {TRAIN_BATCH}, 2 epochs over "
+        f"{TRAIN_WINDOWS} windows")
+    xs, ys = train_data(dev, cfg)
+    state, launches = run_training(dev, all_kernels, cfg, xs, ys,
+                                   dict.fromkeys(TRAIN_KERNELS, 2))
+    # one fp32 step without dropout, through the plain versions of the
+    # attention kernels and through the kernels
+    cfg32 = ModelConfig(compute_dtype="float32", dropout=0.0,
+                        conv_dropout=0.0)
+    xb, yb = xs[:TRAIN_BATCH].float(), ys[:TRAIN_BATCH]
+    compare_fp32_steps("kernels vs plain", fp32_step(dev, cfg32, xb, yb),
+                       fp32_step(dev, cfg32, xb, yb, plain_attention()))
+    return state, xs, ys, launches
 
 
 # Classes of device kernels in the train step's profile, by a word in the
 # kernel's name (first match wins).
 KERNEL_CLASSES = (
+    ("the port's stage and join kernels", (
+        "stage_forward_kernel", "stage_dgrad_kernel", "stage_wgrad_kernel",
+        "join_forward_kernel", "join_backward_kernel", "reduce_rows",
+        "reduce_affine_grads")),
     ("the port's train kernels", ("core_forward_kernel",
                                   "core_backward_kernel",
                                   "sums_forward_kernel",
@@ -659,6 +733,536 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
     return record
 
 
+def step_launches(cfg, batch):
+    """The ``stage`` and ``join`` launches of one fused train step of
+    ``cfg`` at ``batch``, in the model's order, as dicts: a stage's
+    geometry, the leading shape and channels of its input, and whether it
+    has a prologue, a mask (one bit per element or per (sample, channel)),
+    a bias, and an input that needs a gradient."""
+    t, g = cfg.window_size, cfg.tcn_groups
+    stages, joins = [], []
+
+    def stage(kind, lead, ci, co, groups=1, dil=1, pro=False, mask=None,
+              bias=False, need_gx=True):
+        stages.append(dict(kind=kind, lead=lead, ci=ci, co=co, groups=groups,
+                           dil=dil, pro=pro, mask=mask, bias=bias,
+                           need_gx=need_gx))
+
+    cin = cfg.num_subcarriers
+    for i, cout in enumerate(cfg.tcn_channels):
+        lead, first = (batch, t), i == 0
+        if cin != cout:
+            stage("identity", lead, cin, cout, need_gx=not first)
+        stage("causal3", lead, cin, cin, g, 2 ** i, need_gx=not first)
+        stage("identity", lead, cin, cout, pro=True)
+        stage("causal3", lead, cout, cout, g, 2 ** i, pro=True, mask="element")
+        stage("identity", lead, cout, cout, pro=True)
+        joins.append(dict(lead=lead, c=cout, mask="element",
+                          res_norm=cin != cout, act_h=True))
+        cin = cout
+    w, ci = cfg.tcn_channels[-1], 1
+    for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
+        strided = k > 0
+        wout = (w - 1) // 2 + 1 if strided else w
+        stage("chunk1" if strided else "identity", (batch, t, w), ci, co,
+              need_gx=strided)
+        stage("chunk3" if strided else "sym3", (batch, t, w), ci, co,
+              bias=True, need_gx=strided)
+        for _ in range(2):
+            stage("sym3", (batch, t, wout), co, co, pro=True, mask="sample",
+                  bias=True)
+        joins.append(dict(lead=(batch, t, wout), c=co, mask=None,
+                          res_norm=True, act_h=False))
+        ci, w = co, wout
+    return stages, joins
+
+
+def case_label(c):
+    if "kind" not in c:
+        parts = [f"join {list(c['lead'])} x {c['c']}"]
+        parts += [w for w, on in (("mask", c["mask"]),
+                                  ("residual BN", c["res_norm"]),
+                                  ("act_h", c["act_h"])) if on]
+        return ", ".join(parts)
+    head = f"{c['kind']} {list(c['lead'])} {c['ci']}->{c['co']}"
+    if c["groups"] > 1:
+        head += f" g{c['groups']}"
+    if c["kind"] == "causal3":
+        head += f" dil {c['dil']}"
+    parts = [head] + [w for w, on in (
+        ("prologue", c["pro"]), (f"{c['mask']} mask", c["mask"]),
+        ("bias", c["bias"])) if on]
+    return ", ".join(parts)
+
+
+def bn_vectors(c, gen, dev):
+    """Seeded ``(m, a, b)`` of a BatchNorm apply over ``c`` channels."""
+    return (0.3 * torch.randn(c, generator=gen, device=dev),
+            torch.empty(c, device=dev).uniform_(0.5, 1.5, generator=gen),
+            0.3 * torch.randn(c, generator=gen, device=dev))
+
+
+def keep_bits(mask, lead, c, gen, dev, keep):
+    if mask is None:
+        return None
+    shape = (*lead, c) if mask == "element" else (lead[0], c)
+    return torch.rand(shape, generator=gen, device=dev) < keep
+
+
+def stage_inputs(c, gen, dev, keep):
+    """Seeded fp32 inputs and cotangents of one stage launch."""
+    ktaps = 1 if c["kind"] in ("identity", "chunk1") else 3
+    cig = c["ci"] // c["groups"]
+    x = torch.randn((*c["lead"], c["ci"]), generator=gen, device=dev)
+    wshape = (c["co"], cig, ktaps) if len(c["lead"]) == 2 else (
+        c["co"], cig, 1, ktaps)
+    w = torch.randn(wshape, generator=gen, device=dev) / (cig * ktaps) ** 0.5
+    m, a, b = bn_vectors(c["ci"], gen, dev) if c["pro"] else (None,) * 3
+    mask = keep_bits(c["mask"], c["lead"], c["ci"], gen, dev, keep)
+    bias = (0.1 * torch.randn(c["co"], generator=gen, device=dev)
+            if c["bias"] else None)
+    wout = (c["lead"][-1] - 1) // 2 + 1 if c["kind"].startswith(
+        "chunk") else c["lead"][-1]
+    go = 0.1 * torch.randn((*c["lead"][:-1], wout, c["co"]), generator=gen,
+                           device=dev)
+    gs = torch.stack([torch.randn(c["co"], generator=gen, device=dev),
+                      0.01 * torch.randn(c["co"], generator=gen, device=dev)])
+    return dict(x=x, m=m, a=a, b=b, mask=mask, w=w, bias=bias, go=go, gs=gs)
+
+
+def join_inputs(c, gen, dev, keep):
+    shape = (*c["lead"], c["c"])
+    h = torch.randn(shape, generator=gen, device=dev)
+    res = torch.randn(shape, generator=gen, device=dev)
+    vh = bn_vectors(c["c"], gen, dev)
+    vr = bn_vectors(c["c"], gen, dev) if c["res_norm"] else (None,) * 3
+    mask = keep_bits(c["mask"], c["lead"], c["c"], gen, dev, keep)
+    go = 0.1 * torch.randn(shape, generator=gen, device=dev)
+    return dict(h=h, vh=vh, mask=mask, res=res, vr=vr, go=go)
+
+
+def plain_grads(fn, leaves, cots, dt):
+    """``fn`` on the floating leaves cast to ``dt``: its outputs and the
+    gradient of every leaf under the cotangents ``cots``."""
+    leaves = [None if t is None else t.detach().to(dt).requires_grad_(True)
+              for t in leaves]
+    outs = fn(*leaves)
+    live = [t for t in leaves if t is not None]
+    grads = iter(torch.autograd.grad(
+        outs, live, [g.to(o.dtype) for g, o in zip(cots, outs)]))
+    return ([o.detach() for o in outs],
+            [None if t is None else next(grads) for t in leaves])
+
+
+def worst(name, pairs, tol):
+    """Hold every (label, got, ref) to ``tol`` x max|ref|; log one line
+    with the pair closest to its limit and return the first pair's error
+    (the kernel's main output)."""
+    rows = []
+    for label, got, ref in pairs:
+        if got.shape != ref.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name} {label}: shape {tuple(got.shape)} "
+                                 f"vs {tuple(ref.shape)}, or not finite")
+        err = (got.double() - ref.double()).abs().max().item()
+        limit = tol * ref.double().abs().max().item()
+        if not err <= limit:
+            raise AssertionError(f"{name} {label}: {err} > {limit}")
+        rows.append((err / limit if limit else 0.0, label, err, limit))
+    ratio, label, err, limit = max(rows)
+    log(f"  {name}: {len(rows)} results ok [tol {tol:g} x max|ref|]; closest "
+        f"{label}: max_abs_err={err:.6e} limit={limit:.3e}")
+    return rows[0][2]
+
+
+def same_bits(name, first, second):
+    """A second launch on the same inputs must repeat the first bit for
+    bit: the kernels' reductions add in a fixed order and use no atomics."""
+    for a, b in zip(first, second):
+        if a is not None and not torch.equal(a, b):
+            raise AssertionError(f"{name}: two launches on the same inputs "
+                                 f"differ")
+
+
+def check_stage_kernels(dev, cfg):
+    """Phase 8.  Returns each kernel's largest bf16 error at the batch-256
+    shapes: of ``out`` for a forward, of the input gradient for a
+    backward."""
+    from wiflow_tpu_torch.ops.kernels import stage_fused as sk
+    log(f"phase 8: stage and join kernels vs plain versions, batch "
+        f"{TRAIN_BATCH} shapes and 7 samples")
+    keep = 1.0 - cfg.dropout
+    stages, joins = step_launches(cfg, TRAIN_BATCH)
+    small_s, small_j = step_launches(cfg, 7)
+
+    def pick(cases, **want):
+        return next(c for c in cases
+                    if all(c[k] == v for k, v in want.items()))
+
+    stage_cases = [
+        pick(stages, kind="causal3", ci=540, dil=1),
+        pick(stages, kind="causal3", ci=240, dil=8, pro=True),
+        pick(stages, kind="identity", ci=540, co=540, pro=True),
+        pick(stages, kind="identity", ci=540, co=440, pro=True),
+        pick(stages, kind="sym3", ci=8, co=8, lead=(TRAIN_BATCH, 20, 240)),
+        pick(stages, kind="sym3", ci=64, co=64),
+        pick(stages, kind="chunk3", ci=8, co=8),
+        pick(stages, kind="chunk3", ci=32, co=64),
+        pick(stages, kind="chunk1", ci=8, co=8),
+        pick(stages, kind="chunk1", ci=32, co=64),
+        pick(stages, kind="sym3", ci=1, co=8),
+        # 7 samples: the last block of every launch is part-filled
+        pick(small_s, kind="causal3", ci=440, dil=2, pro=True),
+        pick(small_s, kind="identity", ci=540, co=440, pro=True),
+        pick(small_s, kind="sym3", ci=64, co=64),
+        pick(small_s, kind="chunk3", ci=32, co=64),
+        pick(small_s, kind="chunk1", ci=32, co=64),
+    ]
+    join_cases = [
+        pick(joins, c=540), pick(joins, c=440),
+        pick(joins, c=8, lead=(TRAIN_BATCH, 20, 240)), pick(joins, c=64),
+        pick(small_j, c=240), pick(small_j, c=16),
+        # the combinations the default model does not use
+        dict(lead=(7, 20), c=340, mask=None, res_norm=False, act_h=False),
+        dict(lead=(7, 20, 30), c=32, mask="sample", res_norm=True,
+             act_h=True),
+    ]
+    gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    errs = dict.fromkeys(STAGE_ATTRS, 0.0)
+    names = ("gx", "g_m", "g_a", "g_b", "gw", "gbias")
+    for c in stage_cases:
+        i = stage_inputs(c, gen, dev, keep)
+        kw = dict(kind=c["kind"], dil=c["dil"], keep=keep)
+        fn = lambda x, m, a, b, w, bias: sk.stage_plain(  # noqa: E731
+            x, m, a, b, i["mask"], w, bias, **kw)
+        leaves = (i["x"], i["m"], i["a"], i["b"], i["w"], i["bias"])
+        cots = (i["go"], i["gs"])
+        (o32, s32), g32 = plain_grads(fn, leaves, cots, torch.float32)
+        (_, s64), g64 = plain_grads(fn, leaves, cots, torch.float64)
+        main = c["lead"][0] == TRAIN_BATCH
+        for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            tag = f"{case_label(c)}, {'fp32' if dt == torch.float32 else 'bf16'}"
+            x, go = i["x"].to(dt), i["go"].to(dt)
+            out, sums = sk.stage_forward(x, i["m"], i["a"], i["b"], i["mask"],
+                                         i["w"], i["bias"], **kw)
+            e = worst(f"stage fwd {tag}", [
+                ("out", out, o32), ("sum vs float64", sums[0], s64[0]),
+                ("sum of squares vs float64", sums[1], s64[1])], tol)
+            if main and dt == torch.bfloat16:
+                errs["stage_fwd"] = max(errs["stage_fwd"], e)
+            same_bits(f"stage fwd {tag}", (out, sums), sk.stage_forward(
+                x, i["m"], i["a"], i["b"], i["mask"], i["w"], i["bias"],
+                **kw))
+
+            def backward():
+                gx, gmab, gw, gb = sk.stage_backward(
+                    x, i["m"], i["a"], i["b"], i["mask"], i["w"], out, go,
+                    i["gs"], has_bias=c["bias"], **kw)
+                return [gx, *(gmab if c["pro"] else (None,) * 3), gw, gb]
+
+            got = backward()
+            same_bits(f"stage bwd {tag}", got, backward())
+            # the prologue's gradients are the A and B sums: vs float64
+            ref = [g32[0], *g64[1:4], *g32[4:]]
+            e = worst(f"stage bwd {tag}", [
+                (n + (" vs float64" if n[:2] == "g_" else ""), a, r)
+                for n, a, r in zip(names, got, ref) if r is not None], tol)
+            if main and dt == torch.bfloat16:
+                errs["stage_bwd"] = max(errs["stage_bwd"], e)
+    names = ("gh", "g_m_h", "g_a_h", "g_b_h", "gres", "g_m_r", "g_a_r",
+             "g_b_r")
+    for c in join_cases:
+        i = join_inputs(c, gen, dev, keep)
+        kw = dict(keep=keep, act_h=c["act_h"])
+        fn = lambda h, mh, ah, bh, res, mr, ar, br: (sk.join_plain(  # noqa: E731
+            h, mh, ah, bh, i["mask"], res, mr, ar, br, **kw),)
+        leaves = (i["h"], *i["vh"], i["res"], *i["vr"])
+        (o32,), g32 = plain_grads(fn, leaves, (i["go"],), torch.float32)
+        _, g64 = plain_grads(fn, leaves, (i["go"],), torch.float64)
+        main = c["lead"][0] == TRAIN_BATCH
+        for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
+            tag = f"{case_label(c)}, {'fp32' if dt == torch.float32 else 'bf16'}"
+            h, res, go = (i[k].to(dt) for k in ("h", "res", "go"))
+            out = sk.join_forward(h, *i["vh"], i["mask"], res, *i["vr"], **kw)
+            e = worst(f"fwd {tag}", [("out", out, o32)], tol)
+            if main and dt == torch.bfloat16:
+                errs["join_fwd"] = max(errs["join_fwd"], e)
+
+            def backward():
+                gh, gres, gvec = sk.join_backward(
+                    h, *i["vh"], i["mask"], res, *i["vr"], go, **kw)
+                return [gh, *gvec[0], gres,
+                        *(gvec[1] if c["res_norm"] else (None,) * 3)]
+
+            got = backward()
+            same_bits(f"join bwd {tag}", got, backward())
+            ref = [g32[0], *g64[1:4], g32[4], *g64[5:]]
+            e = worst(f"bwd {tag}", [
+                (n + (" vs float64" if n[:2] == "g_" else ""), a, r)
+                for n, a, r in zip(names, got, ref) if r is not None], tol)
+            if main and dt == torch.bfloat16:
+                errs["join_bwd"] = max(errs["join_bwd"], e)
+    torch.cuda.synchronize()
+    log("  every stage and join launch, run twice on the same inputs, gave "
+        "the same bits")
+    return errs
+
+
+def fused_slice(dev, all_kernels, xs, ys):
+    """Phase 9.  Returns the fused bf16 train state and the launches of one
+    fused train step."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    cfg = ModelConfig(**FUSED)
+    log(f"phase 9: training through stage and join, ModelConfig({FUSED}) "
+        f"({cfg.compute_dtype}, dropout {cfg.dropout}/{cfg.conv_dropout}), "
+        f"batch {TRAIN_BATCH}, 2 epochs over {TRAIN_WINDOWS} windows")
+    state, launches = run_training(
+        dev, all_kernels, cfg, xs, ys,
+        {**dict.fromkeys(TRAIN_KERNELS, 2), **STAGE_LAUNCHES})
+    # One fp32 step with dropout on, from one seed (so both paths draw the
+    # same masks), through the stock-op path and through the fused path.
+    # The two do the same arithmetic in another order in 48 places, and the
+    # step amplifies fp32 rounding (the activations of the two paths agree
+    # to a few 1e-6 up to the attention, whose logits BatchNorm takes
+    # E[x^2] - mean^2 in fp32): two fp32 runs of the step cannot be held to
+    # 1e-4.  So the rounding noise of the step is measured, as the
+    # difference between the stock-op step on the card and the same step in
+    # torch's CPU ops (dropout at 0 there: a CPU generator draws other
+    # masks), and the fused step is held to twice that.
+    xb, yb = xs[:TRAIN_BATCH].float(), ys[:TRAIN_BATCH]
+    kw = dict(compute_dtype="float32")
+    off = ModelConfig(dropout=0.0, conv_dropout=0.0, **kw)
+    card, host = fp32_step(dev, off, xb, yb), fp32_step("cpu", off, xb, yb)
+    noise = max(leaf_noise(card[1], host[1], GRAD_FLOOR),
+                leaf_noise(card[2], host[2], STAT_FLOOR),
+                leaf_noise({"g": card[0]["grad_norm"]},
+                           {"g": host[0]["grad_norm"]}, 0.0))
+    tol = max(TOL_F32, 2.0 * noise)
+    log(f"  fp32 rounding noise of one train step (stock ops on the card vs "
+        f"stock ops on the CPU, dropout 0): largest relative difference of a "
+        f"gradient leaf, a running statistic or the gradient norm "
+        f"{noise:.3e}; the fused step is held to {tol:.3e}")
+    compare_fp32_steps("fused vs stock ops, dropout on",
+                       fp32_step(dev, ModelConfig(**kw, **FUSED), xb, yb),
+                       fp32_step(dev, ModelConfig(**kw), xb, yb), tol)
+    compare_fp32_steps("fused vs stock ops, dropout 0",
+                       fp32_step(dev, ModelConfig(dropout=0.0,
+                                                  conv_dropout=0.0, **kw,
+                                                  **FUSED), xb, yb),
+                       card, tol)
+    return state, launches
+
+
+def stage_work(c, esize):
+    """(FLOPs, bytes) of one stage launch, forward and backward: each
+    multiply-add of the true grouped conv counts 2 (the input gradient and
+    the weight gradient as many again), each input byte is read once and
+    each output written once."""
+    ktaps = 1 if c["kind"] in ("identity", "chunk1") else 3
+    win = c["lead"][-1]
+    wout = (win - 1) // 2 + 1 if c["kind"].startswith("chunk") else win
+    rows = math.prod(c["lead"][:-1])
+    nw = c["co"] * (c["ci"] // c["groups"]) * ktaps
+    xb, ob = rows * win * c["ci"] * esize, rows * wout * c["co"] * esize
+    mask = {None: 0, "element": rows * win * c["ci"],
+            "sample": c["lead"][0] * c["ci"]}[c["mask"]]
+    vecs = 4 * (3 * c["ci"] * c["pro"] + c["co"] * c["bias"])
+    conv = 2 * rows * wout * nw
+    fwd = (conv, xb + ob + 4 * nw + mask + vecs + 8 * c["co"])
+    bwd = (conv * (2 if c["need_gx"] else 1),
+           xb + 2 * ob + (xb if c["need_gx"] else 0) + 8 * nw + mask
+           + 2 * vecs + 8 * c["co"])
+    return fwd, bwd
+
+
+def join_work(c, esize):
+    """(FLOPs, bytes) of one join launch, forward and backward."""
+    n = math.prod(c["lead"]) * c["c"]
+    mask = n if c["mask"] else 0
+    vecs = 4 * 3 * c["c"] * (2 if c["res_norm"] else 1)
+    return ((20 * n, 3 * n * esize + mask + vecs),
+            (40 * n, 5 * n * esize + mask + 2 * vecs))
+
+
+def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
+    """Phase 10: ``stage`` and ``join`` over the launches of one step and
+    per geometry, then the fused step against the stock-op step."""
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.ops.kernels import stage_fused as sk
+    from wiflow_tpu_torch.train.steps import train_step
+    log(f"phase 10: stage and join timings, bf16, batch {TRAIN_BATCH} (CUDA "
+        f"events, median of {RUNS})")
+    keep = 1.0 - cfg.dropout
+    dt = torch.bfloat16
+    stages, joins = step_launches(cfg, TRAIN_BATCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def stage_fns(c):
+        i = stage_inputs(c, gen, dev, keep)
+        x, go = i["x"].to(dt), i["go"].to(dt)
+        args = (i["m"], i["a"], i["b"], i["mask"], i["w"], i["bias"])
+        kw = dict(kind=c["kind"], dil=c["dil"], keep=keep)
+        out, _ = sk.stage_forward(x, *args, **kw)
+        leaves = [t.detach().clone().requires_grad_(True) for t in
+                  (x, i["m"], i["a"], i["b"], i["w"], i["bias"])
+                  if t is not None]
+        it = iter(leaves)
+        pl = [None if t is None else next(it) for t in
+              (x, i["m"], i["a"], i["b"])] + [i["mask"]] + [
+            None if t is None else next(it) for t in (i["w"], i["bias"])]
+        pout = sk.stage_plain(*pl, **kw)
+        lib = None
+        if not c["pro"] and c["mask"] is None:
+            # the stage is a bare convolution: one F.conv call on the
+            # channel-first view of the same tensor
+            ktaps = i["w"].shape[-1]
+            stride = 2 if c["kind"].startswith("chunk") else 1
+            w16 = i["w"].to(dt)
+            b16 = None if i["bias"] is None else i["bias"].to(dt)
+            if len(c["lead"]) == 2:
+                xc = F.pad(x.transpose(1, 2), (2 * c["dil"], 0)) if (
+                    c["kind"] == "causal3") else x.transpose(1, 2)
+                lib = lambda: F.conv1d(  # noqa: E731
+                    xc, w16, b16, dilation=c["dil"], groups=c["groups"])
+            else:
+                xc = x.permute(0, 3, 1, 2)
+                lib = lambda: F.conv2d(  # noqa: E731
+                    xc, w16, b16, stride=(1, stride),
+                    padding=(0, ktaps // 2))
+        return dict(
+            fwd=lambda: sk.stage_forward(x, *args, **kw),
+            bwd=lambda: sk.stage_backward(
+                x, *args[:5], out, go, i["gs"], has_bias=c["bias"],
+                need_gx=c["need_gx"], **kw),
+            plain_fwd=lambda: sk.stage_plain(*pl, **kw),
+            plain_bwd=lambda: torch.autograd.grad(
+                pout, leaves if c["need_gx"] else leaves[1:],
+                (go, i["gs"]), retain_graph=True),
+            lib=lib)
+
+    def join_fns(c):
+        i = join_inputs(c, gen, dev, keep)
+        h, res, go = (i[k].to(dt) for k in ("h", "res", "go"))
+        kw = dict(keep=keep, act_h=c["act_h"])
+        leaves = [t.detach().clone().requires_grad_(True)
+                  for t in (h, *i["vh"], res, *i["vr"]) if t is not None]
+        it = iter(leaves)
+        pl = [next(it) for _ in range(4)] + [i["mask"], next(it)] + [
+            None if t is None else next(it) for t in i["vr"]]
+        pout = sk.join_plain(*pl, **kw)
+        return dict(
+            fwd=lambda: sk.join_forward(h, *i["vh"], i["mask"], res,
+                                        *i["vr"], **kw),
+            bwd=lambda: sk.join_backward(h, *i["vh"], i["mask"], res,
+                                         *i["vr"], go, **kw),
+            plain_fwd=lambda: sk.join_plain(*pl, **kw),
+            plain_bwd=lambda: torch.autograd.grad(pout, leaves, go,
+                                                  retain_graph=True),
+            lib=None)
+
+    sfn = [stage_fns(c) for c in stages]
+    jfn = [join_fns(c) for c in joins]
+    swork = [stage_work(c, 2) for c in stages]
+    jwork = [join_work(c, 2) for c in joins]
+    plain_runs = max(3, RUNS // 4)
+
+    # per geometry: each distinct launch of the step, once
+    log("  per launch: kernel / plain / bound ms, forward then backward; "
+        "F.conv where the stage is a bare convolution")
+    seen = set()
+    for c, f, (wf, wb) in list(zip(stages, sfn, swork)) + list(
+            zip(joins, jfn, jwork)):
+        label = case_label(c)
+        if label in seen:
+            continue
+        seen.add(label)
+        bf, byf = bound_ms(*wf, dt)
+        bb, byb = bound_ms(*wb, dt)
+        lib = ("" if f["lib"] is None
+               else f", F.conv {time_ms(f['lib'], RUNS):.4f}")
+        log(f"    {label}: fwd {time_ms(f['fwd'], RUNS):.4f} / "
+            f"{time_ms(f['plain_fwd'], plain_runs):.4f} / {bf:.4f} ({byf})"
+            f"{lib}; bwd {time_ms(f['bwd'], RUNS):.4f} / "
+            f"{time_ms(f['plain_bwd'], plain_runs):.4f} / {bb:.4f} ({byb})")
+
+    # summed over the launches of one train step
+    record = []
+    for name, fns, work, key in (("stage_fwd", sfn, swork, "fwd"),
+                                 ("stage_bwd", sfn, swork, "bwd"),
+                                 ("join_fwd", jfn, jwork, "fwd"),
+                                 ("join_bwd", jfn, jwork, "bwd")):
+        ms = time_ms(lambda: [f[key]() for f in fns], RUNS)
+        plain_ms = time_ms(lambda: [f["plain_" + key]() for f in fns],
+                           plain_runs)
+        which = 0 if key == "fwd" else 1
+        # a launch cannot overlap the next: the bound is the sum of bounds
+        bounds = [bound_ms(*w[which], dt) for w in work]
+        bms = sum(b for b, _ in bounds)
+        by = max(("bytes", "operations"),
+                 key=lambda k: sum(b for b, kk in bounds if kk == k))
+        kern = getattr(sk, STAGE_ATTRS[name])
+        row = {"name": name, "route": "cuda", "source": kern.source,
+               "replaces": kern.replaces, "launches": launches[name],
+               "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
+               "bound_ms": bms, "bound_by": by, "library_ms": None}
+        lib = ""
+        if name == "stage_fwd":
+            bare = [f for f in fns if f["lib"] is not None]
+            row["library_ms"] = time_ms(lambda: [f["lib"]() for f in bare],
+                                        RUNS)
+            row["library_launches"] = len(bare)
+            row["ms_of_library_launches"] = time_ms(
+                lambda: [f["fwd"]() for f in bare], RUNS)
+            lib = (f"; the {len(bare)} launches that are bare convolutions: "
+                   f"kernel {row['ms_of_library_launches']:.4f} ms, F.conv "
+                   f"{row['library_ms']:.4f} ms")
+        log(f"  {name}, the {len(fns)} launches of one step: kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"(mostly {by}; {sum(w[which][0] for w in work) / 1e9:.3f} "
+            f"GFLOP, {sum(w[which][1] for w in work) / 1e9:.4f} GB){lib}")
+        record.append(row)
+    del sfn, jfn
+    torch.cuda.empty_cache()
+
+    # the fused step against the stock-op step, in turns as in phase 7
+    def fused_step():
+        train_step(fused_state, xb, yb)
+
+    def stock_step():
+        train_step(stock_state, xb, yb)
+
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fused_step()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    turns = {"fused": [], "stock": []}
+    for r in range(STEP_ROUNDS):
+        for name in ("fused", "stock")[::1 if r % 2 == 0 else -1]:
+            turns[name].append(time_step_ms(
+                fused_step if name == "fused" else stock_step, RUNS // 2))
+    fused_ms = statistics.median(t for t, _ in turns["fused"])
+    stock_ms = statistics.median(t for t, _ in turns["stock"])
+    wins = sum(f < k for (f, _), (k, _) in zip(turns["fused"],
+                                                turns["stock"]))
+    host_share = statistics.median(h / t for t, h in turns["fused"])
+    kernels_ms = sum(r["ms"] for r in record)
+    log(f"fused train step bf16 batch {TRAIN_BATCH} (forward, backward, "
+        f"clip, AdamW), median of {STEP_ROUNDS} turns of {RUNS // 2} steps: "
+        f"{fused_ms:.4f} ms = {TRAIN_BATCH / fused_ms * 1e3:.1f} windows/s; "
+        f"the stock-op step: {stock_ms:.4f} ms = "
+        f"{TRAIN_BATCH / stock_ms * 1e3:.1f} windows/s; the fused step "
+        f"faster in {wins} of {STEP_ROUNDS} rounds; the host's time to "
+        f"enqueue a fused step {host_share:.1%} of the step; stage and join "
+        f"alone {kernels_ms:.4f} ms = {kernels_ms / fused_ms:.1%} of it; "
+        f"peak device memory of the step {peak / 2**30:.2f} GiB above the "
+        f"{base / 2**30:.2f} GiB held before it")
+    for name, ts in turns.items():
+        log(f"  {name} per turn, step / enqueue ms: "
+            + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
+    profile_step(fused_step, fused_ms)
+    return record
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -675,6 +1279,7 @@ def main() -> int:
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as train_k
     from wiflow_tpu_torch.ops.kernels import build as kbuild
     from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    from wiflow_tpu_torch.ops.kernels import stage_fused as stage_k
     from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
 
     # -- phase 1: card, versions, build ------------------------------------
@@ -687,8 +1292,9 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
     kernels = {"tcn_level": tcn_k.KERNEL, "conv_stack": conv_k.KERNEL,
                "axial_attention": attn_k.KERNEL}
-    all_kernels = {**kernels, **{n: getattr(train_k, a)
-                                 for n, a in KERNEL_ATTRS.items()}}
+    all_kernels = {**kernels,
+                   **{n: getattr(train_k, a) for n, a in KERNEL_ATTRS.items()},
+                   **{n: getattr(stage_k, a) for n, a in STAGE_ATTRS.items()}}
     libraries = sorted({k.name for k in all_kernels.values()})
     t0 = time.perf_counter()
     secs = kbuild.build(libraries)
@@ -806,6 +1412,10 @@ def main() -> int:
         direct = fast_forward(packed16, sliding_windows(stream, t))
         compare("stream vs fast_forward on the same windows", poses, direct,
                 TOL_F32)
+        stream_ms = time_ms(lambda: infer(stream), RUNS)
+        log(f"stream of {stream.shape[0]} frames ({b} windows, bf16): "
+            f"{stream_ms:.4f} ms = {b / stream_ms * 1e3:.1f} windows/s "
+            f"(CUDA events, median of {RUNS})")
 
         # -- phase 4: timings ----------------------------------------------
         log(f"phase 4: timings (CUDA events, median of {RUNS})")
@@ -866,9 +1476,16 @@ def main() -> int:
     # -- phases 5-7: the training path ---------------------------------------
     c, g = cfg16.conv_channels[-1], cfg16.attention_groups
     main16, train_errs = check_train_kernels(dev, c, g)
-    state, xb, yb, train_launches = train_slice(dev, all_kernels)
+    state, xs, ys, train_launches = train_slice(dev, all_kernels)
+    xb, yb = xs[:TRAIN_BATCH], ys[:TRAIN_BATCH]
     record += train_timings(state, xb, yb, main16, c, g, train_launches,
                             train_errs)
+
+    # -- phases 8-10: the stage-fused training path --------------------------
+    stage_errs = check_stage_kernels(dev, cfg16)
+    fused_state, fused_launches = fused_slice(dev, all_kernels, xs, ys)
+    record += fused_timings(dev, cfg16, state, fused_state, xb, yb,
+                            fused_launches, stage_errs)
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -4,9 +4,11 @@ A copy of the fields of ``wiflow_tpu.core.config`` that the port reads,
 with the same defaults (the reference architecture and trainer, ref
 models/pose_model.py:16-53 and train.py:105-121).  The JAX package's
 config module is not imported: importing anything under ``wiflow_tpu``
-runs its package ``__init__``, which loads JAX.  TPU lowering switches
-(``*_impl``, ``rng_impl``, ``scan_epochs``, ``max_steps_per_call``,
-``tcn_matmul``) have no counterpart here.
+runs its package ``__init__``, which loads JAX.  Of the lowering switches
+only ``tcn_train_impl`` and ``conv_train_impl`` have a counterpart: they
+select the stage-fused train path (``ops/kernels/stage_fused.py``).  The
+others (``attention*_impl``, ``rng_impl``, ``scan_epochs``,
+``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none.
 """
 
 from __future__ import annotations
@@ -23,6 +25,17 @@ SKELETON_CONNECTIONS: Tuple[Tuple[int, int], ...] = (
     (1, 5), (5, 6), (6, 7), (8, 9), (8, 12),
     (9, 10), (10, 11), (12, 13), (13, 14),
 )
+
+
+TRAIN_IMPLS = ("xla", "fused", "auto")
+
+
+def use_fused(impl: str, device: torch.device) -> bool:
+    """Whether a ``*_train_impl`` switch selects the fused train path for
+    a model on ``device``."""
+    if impl not in TRAIN_IMPLS:
+        raise ValueError(f"train impl {impl!r}: one of {TRAIN_IMPLS}")
+    return impl == "fused" or (impl == "auto" and device.type == "cuda")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +55,20 @@ class ModelConfig:
     conv_dropout: float = 0.3               # conv blocks' Dropout2d
     # compute dtype for the forward pass; parameters stay fp32
     compute_dtype: str = "bfloat16"
+    # Train-mode lowering of the TCN and of the conv stack: 'xla' = stock
+    # torch ops (the name is the JAX package's, so that its configs carry
+    # over), 'fused' = one stage kernel per BN-apply -> SiLU -> dropout ->
+    # conv and one join kernel per residual tail
+    # (ops/kernels/stage_fused.py), 'auto' = fused on a CUDA device.  Eval
+    # mode ignores both.
+    tcn_train_impl: str = "xla"
+    conv_train_impl: str = "xla"
+
+    def __post_init__(self):
+        for name in ("tcn_train_impl", "conv_train_impl"):
+            if getattr(self, name) not in TRAIN_IMPLS:
+                raise ValueError(f"{name}={getattr(self, name)!r}: one of "
+                                 f"{TRAIN_IMPLS}")
 
     @property
     def dtype(self) -> torch.dtype:

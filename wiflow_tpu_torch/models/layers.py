@@ -15,7 +15,8 @@ import torch
 from torch import nn
 
 from wiflow_tpu_torch.ops.norm import (
-    batch_norm_eval, batch_norm_train, dropout, dropout2d, running_update,
+    MOMENTUM, batch_norm_eval, batch_norm_train, bn_vectors_from_sums,
+    dropout, dropout2d, keep_mask, running_update,
 )
 
 
@@ -58,6 +59,21 @@ class TorchBatchNorm(nn.Module):
         self.running_var.copy_(new_var)
         self.num_batches_tracked.add_(1)
 
+    def from_sums(self, sums: torch.Tensor, count: int):
+        """Train-mode BN for a fused stage: from the per-channel sum and
+        sum of squares ``sums [2, C]`` of ``count`` elements, move the
+        running statistics and return the fp32 apply vectors ``(m, a, b)``
+        of ``y = (x - m) * a + b``."""
+        m, a, b, var = bn_vectors_from_sums(sums, count, self.weight,
+                                            self.bias)
+        with torch.no_grad():
+            # running <- running + 0.1 * (batch - running), in place
+            self.running_mean.lerp_(m, MOMENTUM)
+            self.running_var.lerp_(var * (count / max(count - 1, 1)),
+                                   MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return m, a, b
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.training:
             y, new_mean, new_var = batch_norm_train(
@@ -79,9 +95,20 @@ class TorchDropout(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dropout(x, self.rate, self.generator) if self.training else x
 
+    def keep_mask(self, x: torch.Tensor):
+        """The bool keep-mask ``forward(x)`` would draw, for a fused stage
+        to apply: ``x``'s shape, or None at rate 0."""
+        return keep_mask(x.shape, self.rate, x.device, self.generator)
+
 
 class TorchDropout2d(TorchDropout):
     """Channel dropout (torch ``nn.Dropout2d``) on ``[B, H, W, C]``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return dropout2d(x, self.rate, self.generator) if self.training else x
+
+    def keep_mask(self, x: torch.Tensor):
+        """One bit per (sample, channel) of ``x [B, H, W, C]``, as
+        ``[B, 1, 1, C]``, or None at rate 0."""
+        return keep_mask((x.shape[0], 1, 1, x.shape[-1]), self.rate,
+                         x.device, self.generator)

@@ -15,6 +15,14 @@ updates its running ones, dropout is on, and the attention core and the
 batch moments of its logits run through the train kernels of
 ``ops/kernels/axial_attention_train.py`` (their plain versions on a CPU
 tensor).  Dropout draws from ``WiFlowPoseModel.dropout_generator``.
+
+With ``ModelConfig.tcn_train_impl`` / ``conv_train_impl`` set to
+``"fused"`` (or ``"auto"`` on a CUDA device) the train-mode TCN and conv
+stack run through ``ops/kernels/stage_fused.py``: one ``stage`` per
+BN-apply -> SiLU -> dropout -> conv, which also sums the next BN's
+moments, and one ``join`` per residual tail.  The parameters, buffers,
+dropout draws and values are those of the stock-op path; eval mode
+ignores the switches.
 """
 
 from __future__ import annotations
@@ -24,7 +32,9 @@ import math
 import torch
 from torch import nn
 
-from wiflow_tpu_torch.core.config import ModelConfig, resolve_device
+from wiflow_tpu_torch.core.config import (
+    ModelConfig, resolve_device, use_fused,
+)
 from wiflow_tpu_torch.models.layers import (
     TorchBatchNorm, TorchDropout, TorchDropout2d, silu,
 )
@@ -35,6 +45,7 @@ from wiflow_tpu_torch.ops.conv import (
 from wiflow_tpu_torch.ops.kernels.axial_attention_train import (
     axial_core, logits_moments_fused,
 )
+from wiflow_tpu_torch.ops.kernels.stage_fused import join, stage
 from wiflow_tpu_torch.ops.norm import EPS
 
 
@@ -43,9 +54,13 @@ class TCNLevel(nn.Module):
 
     def __init__(self, n_in: int, n_out: int, kernel_size: int,
                  dilation: int, groups: int, dropout: float = 0.0,
-                 generator: torch.Generator | None = None, *, device=None):
+                 generator: torch.Generator | None = None, *, device=None,
+                 fused: bool = False):
         super().__init__()
-        self.dilation, self.groups = dilation, groups
+        if fused and kernel_size != 3:
+            raise ValueError(f"the fused train path takes tcn_kernel_size 3, "
+                             f"got {kernel_size}")
+        self.dilation, self.groups, self.fused = dilation, groups, fused
         k = kernel_size
         self.conv1_group = nn.Conv1d(n_in, n_in, k, groups=groups,
                                      bias=False, device=device)
@@ -65,8 +80,36 @@ class TCNLevel(nn.Module):
                 nn.Conv1d(n_in, n_out, 1, bias=False, device=device),
                 TorchBatchNorm(n_out, device=device))
 
+    def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode through four or five stages and a join
+        (``wiflow_tpu/models/wiflow.py::TCNLevel._fused_blocks``)."""
+        n = x.shape[0] * x.shape[1]                  # BN count: B * T
+        keep = 1.0 - self.dropout1.rate
+        dil = self.dilation
+        res_v = ()
+        res = x
+        if self.downsample is not None:
+            res, s = stage(x, None, None, None, None,
+                           self.downsample[0].weight, None, kind="identity")
+            res_v = self.downsample[1].from_sums(s, n)
+        h, s = stage(x, None, None, None, None, self.conv1_group.weight,
+                     None, kind="causal3", dil=dil)
+        h, s = stage(h, *self.bn1_group.from_sums(s, n), None,
+                     self.conv1_pw.weight, None, kind="identity")
+        v = self.bn1_pw.from_sums(s, n)
+        h, s = stage(h, *v, self.dropout1.keep_mask(h),
+                     self.conv2_group.weight, None, kind="causal3", dil=dil,
+                     keep=keep)
+        h, s = stage(h, *self.bn2_group.from_sums(s, n), None,
+                     self.conv2_pw.weight, None, kind="identity")
+        v = self.bn2_pw.from_sums(s, n)
+        return join(h, *v, self.dropout2.keep_mask(h), res, *res_v,
+                    keep=keep, act_h=True)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x [B, T, C_in]`` -> ``[B, T, C_out]``."""
+        if self.fused and self.training:
+            return self._forward_fused(x)
         if self.downsample is not None:
             res = self.downsample[1](
                 pointwise_conv1d(x, self.downsample[0].weight))
@@ -90,12 +133,15 @@ class TCNStack(nn.Module):
 
     def __init__(self, num_inputs: int, num_channels, kernel_size: int,
                  groups: int, dropout: float = 0.0,
-                 generator: torch.Generator | None = None, *, device=None):
+                 generator: torch.Generator | None = None, *, device=None,
+                 train_impl: str = "xla"):
         super().__init__()
+        fused = use_fused(train_impl, torch.device(device or "cpu"))
         levels, n_in = [], num_inputs
         for i, n_out in enumerate(num_channels):
             levels.append(TCNLevel(n_in, n_out, kernel_size, 2 ** i, groups,
-                                   dropout, generator, device=device))
+                                   dropout, generator, device=device,
+                                   fused=fused))
             n_in = n_out
         self.network = nn.Sequential(*levels)
 
@@ -114,9 +160,13 @@ class ConvBlock(nn.Module):
 
     def __init__(self, n_in: int, n_out: int, stride_w: int = 1,
                  dropout: float = 0.0,
-                 generator: torch.Generator | None = None, *, device=None):
+                 generator: torch.Generator | None = None, *, device=None,
+                 fused: bool = False):
         super().__init__()
-        self.stride_w = stride_w
+        if fused and stride_w not in (1, 2):
+            raise ValueError(f"the fused train path takes stride 1 or 2, "
+                             f"got {stride_w}")
+        self.stride_w, self.fused = stride_w, fused
 
         def conv(ci):
             return nn.Conv2d(ci, n_out, (1, 3), stride=(1, 1),
@@ -132,8 +182,29 @@ class ConvBlock(nn.Module):
             nn.Conv2d(n_in, n_out, 1, bias=False, device=device),
             TorchBatchNorm(n_out, device=device))
 
+    def _forward_fused(self, x: torch.Tensor) -> torch.Tensor:
+        """Train mode through four stages and a join
+        (``wiflow_tpu/models/wiflow.py::ConvBlock._fused_stage``)."""
+        blk = self.block
+        strided = self.stride_w == 2
+        keep = 1.0 - blk[3].rate
+        res, s = stage(x, None, None, None, None, self.downsample[0].weight,
+                       None, kind="chunk1" if strided else "identity")
+        n = res.numel() // res.shape[-1]             # BN count: B * H * W_out
+        res_v = self.downsample[1].from_sums(s, n)
+        h, s = stage(x, None, None, None, None, blk[0].weight, blk[0].bias,
+                     kind="chunk3" if strided else "sym3")
+        for i in (4, 8):
+            v = blk[i - 3].from_sums(s, n)
+            h, s = stage(h, *v, blk[i - 1].keep_mask(h), blk[i].weight,
+                         blk[i].bias, kind="sym3", keep=keep)
+        return join(h, *blk[9].from_sums(s, n), None, res, *res_v,
+                    act_h=False)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``x [B, H, W, C_in]`` -> ``[B, H, W_out, C_out]``."""
+        if self.fused and self.training:
+            return self._forward_fused(x)
         identity = self.downsample[1](conv1x1_2d(
             x, self.downsample[0].weight, stride_w=self.stride_w))
         out = x
@@ -234,13 +305,15 @@ class WiFlowPoseModel(nn.Module):
         gen = self.dropout_generator = torch.Generator(device=dev)
         self.tcn = TCNStack(cfg.num_subcarriers, tuple(cfg.tcn_channels),
                             cfg.tcn_kernel_size, cfg.tcn_groups, cfg.dropout,
-                            gen, device=dev)
+                            gen, device=dev, train_impl=cfg.tcn_train_impl)
         chans = tuple(cfg.conv_channels)
-        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev)
+        fused = use_fused(cfg.conv_train_impl, dev)
+        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev,
+                            fused=fused)
         blocks, n_in = [], chans[0]
         for n_out in chans:
             blocks.append(ConvBlock(n_in, n_out, 2, cfg.conv_dropout, gen,
-                                    device=dev))
+                                    device=dev, fused=fused))
             n_in = n_out
         self.residual_blocks = nn.ModuleList(blocks)
         c = chans[-1]
@@ -279,6 +352,8 @@ class WiFlowPoseModel(nn.Module):
                 f"WiFlowPoseModel expects [B, {cfg.num_subcarriers}, "
                 f"{cfg.window_size}] CSI windows, got {tuple(x.shape)}")
         x = x.to(cfg.dtype).transpose(1, 2)               # [B, T, C]
+        if self.training and self.tcn.network[0].fused:
+            x = x.contiguous()        # once, for the stages that read it
         x = self.tcn(x)[..., None]                        # [B, T, 240, 1]
         x = self.up(x)
         for blk in self.residual_blocks:

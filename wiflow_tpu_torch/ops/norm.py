@@ -79,6 +79,37 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return y, new_mean, new_var
 
 
+def bn_vectors_from_sums(sums: torch.Tensor, count: int, gamma: torch.Tensor,
+                         beta: torch.Tensor):
+    """Train-mode BN from per-channel sums instead of the tensor.
+
+    ``sums [2, C]`` holds the sum and the sum of squares of ``count``
+    elements per channel.  Returns ``(m, a, b, var)``: the apply vectors
+    of ``y = (x - m) * a + b`` in fp32 (``m`` the batch mean,
+    ``a = gamma * rsqrt(var + eps)``, ``b = beta``; whoever applies them
+    rounds them to the compute dtype, which reproduces
+    :func:`batch_norm_train`) and the batch's biased variance.  A
+    few ops on ``[C]``-sized tensors, differentiable in ``sums``, ``gamma``
+    and ``beta`` (counterpart of the ``moments=`` entry of
+    ``wiflow_tpu/models/layers.py::TorchBatchNorm``).
+    """
+    mom = sums / count
+    mean = mom[0]
+    var = torch.addcmul(mom[1], mean, mean, value=-1.0)
+    a = gamma.float() * torch.rsqrt(var + EPS)
+    return mean, a, beta.float(), var
+
+
+def keep_mask(shape, rate: float, device: torch.device,
+              generator: torch.Generator):
+    """The bool keep-mask :func:`dropout` and :func:`dropout2d` draw for
+    ``shape`` (the same bits from the same generator state), or None when
+    ``rate`` drops nothing."""
+    if rate <= 0.0:
+        return None
+    return _keep_mask(shape, 1.0 - rate, device, generator)
+
+
 def _keep_mask(shape, keep: float, device: torch.device,
                generator: torch.Generator) -> torch.Tensor:
     return torch.rand(shape, generator=generator, device=device) < keep
