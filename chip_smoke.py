@@ -7,12 +7,13 @@ their kernels.
 Phases (any failure exits nonzero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the seven CUDA libraries from ``wiflow_tpu_torch/csrc``
+   and the build of the nine CUDA libraries from ``wiflow_tpu_torch/csrc``
    (one nvcc each, started together), with ptxas's registers and spills
    under each kernel's name;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
-   ``[81920, 240]``, attention ``[4096, 15, 20, 64]``): fp32 with TF32 off,
+   ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
+   conv rows), which leave thread blocks part-filled: fp32 with TF32 off,
    and bf16 against the fp32 plain version;
 3. the slice end to end: the default ``ModelConfig`` (bf16) with seeded
    weights, ``fast_forward`` at batch 4096 (and at batch 7, which leaves
@@ -59,9 +60,32 @@ Phases (any failure exits nonzero; nothing is caught):
    geometry, against their plain versions, their bounds and, where a stage
    is a bare convolution, ``F.conv1d`` / ``F.conv2d``; the fused step
    against the stock-op step in alternating turns, and the profiler's
-   breakdown of the fused step.
+   breakdown of the fused step;
+11. the other two lowerings of the serving attention: the v1 kernel (on a
+   precomputed QKV projection, rounded to the storage type) and the
+   one-launch dual kernel against their plain versions at
+   ``[4096, 15, 20, 64]`` and at batch 7, fp32 and bf16, the dual kernel
+   also against the v2 kernel; ``fast_forward(attention_impl="dual")`` must
+   launch the dual kernel once and the v2 and v1 kernels never,
+   ``attention_impl="v1"`` the v1 kernel twice, and both agree with the
+   plain-torch module;
+12. MM-Fi serving: the default ``MMFiModelConfig`` (bf16) with seeded
+   weights at batch 4096; the three serving kernels against their plain
+   versions at its shapes (TCN ``[4096, 10, 342]`` -> 342 -> 306 -> 288 with
+   18 groups, conv stack ``[40960, 272]``, attention ``[4096, 17, 10, 64]``)
+   and at part-filled blocks; ``fast_forward_mmfi`` (3 + 1 + 2 launches)
+   against the plain-torch ``WiFlowMMFiModel`` at batch 4096 and 7; the
+   MM-Fi metrics of the served batch on the card against the same on the
+   CPU;
+13. timings: the v1 and dual kernels against their plain versions, their
+   bounds and, for v1, ``scaled_dot_product_attention``; ``fast_forward``
+   under ``"v2"``, ``"dual"`` and ``"v1"`` in alternating turns;
+   ``fast_forward_mmfi`` in frames/s beside the plain module, and the
+   three serving kernels at the MM-Fi shapes with their bounds.
 
-The line before the last is the kernels' JSON record, the last line
+Phases 11-13 belong to serving and share its weights and inputs, so they
+run after phase 4, before the training phases.  The line before the last
+is the kernels' JSON record (13 rows), the last line
 ``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
 """
 
@@ -196,10 +220,12 @@ def nontrivial_stats(model: torch.nn.Module, scale: float = 0.2) -> None:
 
 
 def tcn_work(cfg, batch, esize):
-    """(FLOPs, bytes) of the four TCN level launches."""
+    """(FLOPs, bytes) of the TCN level launches of ``cfg`` (a ``ModelConfig``
+    or an ``MMFiModelConfig``, whose antennas are flattened into the
+    channels)."""
     t, g = cfg.window_size, cfg.tcn_groups
     flops = nbytes = 0
-    cin = cfg.num_subcarriers
+    cin = getattr(cfg, "input_channels", cfg.num_subcarriers)
     for cout in cfg.tcn_channels:
         ds = cin * cout if cin != cout else 0
         # one multiply-add per weight at each (sample, step)
@@ -213,8 +239,9 @@ def tcn_work(cfg, batch, esize):
 
 
 def conv_work(cfg, rows, esize):
-    """(FLOPs, bytes) of the conv-stack launch."""
-    w, ci = cfg.tcn_channels[-1], 1
+    """(FLOPs, bytes) of the conv-stack launch; its rows are the TCN's
+    output features or, for MM-Fi, the projection's."""
+    w, ci = getattr(cfg, "tcn_proj_channels", cfg.tcn_channels[-1]), 1
     macs = weights = 0
     w_in = w
     for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
@@ -429,17 +456,10 @@ def run_training(dev, all_kernels, cfg, xs, ys, expect):
             TRAIN_WINDOWS, generator=shuffle)).to(dev)
         for bi in idx:
             if launches is None:
-                for k in all_kernels.values():
-                    k.launches = 0
+                reset_launches(all_kernels)
                 m = train_step(state, xs[bi], ys[bi])
-                torch.cuda.synchronize()
-                launches = {n: k.launches for n, k in all_kernels.items()}
-                log(f"kernels launched by one train step: "
-                    f"{json.dumps(launches)}")
-                want = {n: expect.get(n, 0) for n in all_kernels}
-                if launches != want:
-                    raise AssertionError(f"one train step launched "
-                                         f"{launches}, expected {want}")
+                launches = read_launches(all_kernels)
+                expect_launches("one train step", launches, expect)
             elif len(losses) == 1:
                 # the second step must not wait on the device: torch
                 # raises on any synchronizing call in this mode
@@ -1263,26 +1283,424 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
     return record
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from wiflow_tpu_torch.core.config import ModelConfig
-    from wiflow_tpu_torch.eval.streaming import (
-        make_stream_infer, sliding_windows,
-    )
-    from wiflow_tpu_torch.models.fast import decode, fast_forward, pack_fast
+def reset_launches(all_kernels):
+    for k in all_kernels.values():
+        k.launches = 0
+
+
+def read_launches(all_kernels):
+    torch.cuda.synchronize()
+    return {n: k.launches for n, k in all_kernels.items()}
+
+
+def expect_launches(what, got, want):
+    """``got`` must be ``want`` for the kernels it names and 0 for every
+    other kernel."""
+    full = {n: want.get(n, 0) for n in got}
+    log(f"kernels launched by {what}: "
+        f"{json.dumps({n: v for n, v in got.items() if v})}")
+    if got != full:
+        raise AssertionError(f"{what} launched {got}, expected {full}")
+
+
+def check_serving_kernels(tag, tcn_in, packed32, packed16, mid=None):
+    """The three serving kernels against their plain versions at the shapes
+    ``tcn_in [B, T, C0]`` gives them, each fed the fp32 plain result of the
+    stage before it (``mid``, in stock ops, between the TCN and the conv
+    stack): fp32 with TF32 off, bf16 against the fp32 plain version, and 7
+    samples (101 conv rows), which leave the last thread block of every
+    launch part-filled.  Returns each kernel's largest bf16 error at the
+    full batch and the fp32 inputs of the three stages."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
+    bf = torch.bfloat16
+    b, t = tcn_in.shape[:2]
+    errs = {}
+    h, e = tcn_in, 0.0
+    for i, (l32, l16) in enumerate(zip(packed32.tcn, packed16.tcn)):
+        ref = tcn_k.tcn_level_plain(h, l32)
+        compare(f"{tag}tcn level {i} fp32", tcn_k.tcn_level(h, l32), ref,
+                TOL_F32)
+        e = max(e, compare(f"{tag}tcn level {i} bf16",
+                           tcn_k.tcn_level(h.to(bf), l16), ref, TOL_BF16))
+        compare(f"{tag}tcn level {i} fp32, 7 samples",
+                tcn_k.tcn_level(h[:7].contiguous(), l32), ref[:7], TOL_F32)
+        compare(f"{tag}tcn level {i} bf16, 7 samples",
+                tcn_k.tcn_level(h[:7].to(bf), l16), ref[:7], TOL_BF16)
+        h = ref
+    errs["tcn_level"] = e
+    if mid is not None:
+        h = mid(h)
+    rows = h.reshape(b * t, -1)
+    ref = conv_k.conv_stack_plain(rows, packed32.conv)
+    compare(f"{tag}conv stack fp32", conv_k.fused_conv_stack_eval(
+        rows, packed32.conv), ref, TOL_F32)
+    errs["conv_stack"] = compare(
+        f"{tag}conv stack bf16", conv_k.fused_conv_stack_eval(
+            rows.to(bf), packed16.conv), ref, TOL_BF16)
+    compare(f"{tag}conv stack fp32, 101 rows", conv_k.fused_conv_stack_eval(
+        rows[:101], packed32.conv), ref[:101], TOL_F32)
+    compare(f"{tag}conv stack bf16, 101 rows", conv_k.fused_conv_stack_eval(
+        rows[:101].to(bf), packed16.conv), ref[:101], TOL_BF16)
+    a_in = ref.reshape(b, t, *ref.shape[1:]).permute(0, 3, 1, 2).contiguous()
+    ref = attn_k.dual_axial_attention_fused_plain(a_in, packed32.attention)
+    compare(f"{tag}attention fp32", attn_k.dual_axial_attention_eval(
+        a_in, packed32.attention), ref, TOL_F32)
+    errs["axial_attention"] = compare(
+        f"{tag}attention bf16", attn_k.dual_axial_attention_eval(
+            a_in.to(bf), packed16.attention), ref, TOL_BF16)
+    compare(f"{tag}attention fp32, 7 samples",
+            attn_k.dual_axial_attention_eval(a_in[:7], packed32.attention),
+            ref[:7], TOL_F32)
+    compare(f"{tag}attention bf16, 7 samples",
+            attn_k.dual_axial_attention_eval(a_in[:7].to(bf),
+                                             packed16.attention),
+            ref[:7], TOL_BF16)
+    torch.cuda.synchronize()
+    return errs, (tcn_in, rows, a_in)
+
+
+def time_serving_kernels(tag, cfg, inputs, packed16):
+    """``{kernel: (ms, plain ms, bound ms, bound by)}`` of the three serving
+    kernels in bf16 at the shapes of ``inputs``."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
+    tin16, rows16, a16 = (t.to(torch.bfloat16) for t in inputs)
+    b = tin16.shape[0]
+
+    def tcn_plain_stack():
+        y = tin16
+        for lv in packed16.tcn:
+            y = tcn_k.tcn_level_plain(y, lv)
+        return y
+
+    cases = {
+        "tcn_level": (lambda: tcn_k.fused_tcn_eval(tin16, packed16.tcn),
+                      tcn_plain_stack, tcn_work(cfg, b, 2)),
+        "conv_stack": (lambda: conv_k.fused_conv_stack_eval(
+            rows16, packed16.conv),
+            lambda: conv_k.conv_stack_plain(rows16, packed16.conv),
+            conv_work(cfg, rows16.shape[0], 2)),
+        "axial_attention": (lambda: attn_k.dual_axial_attention_eval(
+            a16, packed16.attention),
+            lambda: attn_k.dual_axial_attention_fused_plain(
+                a16, packed16.attention),
+            attention_work(cfg, b, 2)),
+    }
+    out = {}
+    for name, (kfn, pfn, (flops, nbytes)) in cases.items():
+        ms = time_ms(kfn, RUNS)
+        plain_ms = time_ms(pfn, max(3, RUNS // 4))
+        bms, by = bound_ms(flops, nbytes, torch.bfloat16)
+        log(f"  {tag}{name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
+            f"{nbytes / 1e9:.4f} GB), fp32 CUDA-core bound "
+            f"{flops / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms")
+        out[name] = (ms, plain_ms, bms, by)
+    return out
+
+
+def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
+                             ref_out):
+    """Phase 11.  Returns the bf16 errors at batch 4096 and the launches of
+    one ``fast_forward`` of the v1 and the one-launch dual kernel."""
+    from wiflow_tpu_torch.models.fast import fast_forward
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    log(f"phase 11: the v1 and the one-launch dual attention kernels vs "
+        f"plain versions, batch {a_in.shape[0]} and batch 7")
+    bf = torch.bfloat16
+    errs = {}
+    for label, a in ((f"batch {a_in.shape[0]}", a_in), ("batch 7", a_in[:7])):
+        main = a is a_in
+        ref = attn_k.dual_axial_attention_fused_plain(a, packed32.attention)
+        # row 5: one launch, against its plain version and the v2 kernel
+        compare(f"dual fp32, {label}", attn_k.dual_axial_attention_eval_fused(
+            a, packed32.attention), ref, TOL_F32)
+        d16 = attn_k.dual_axial_attention_eval_fused(a.to(bf),
+                                                     packed16.attention)
+        e = compare(f"dual bf16, {label}", d16, ref, TOL_BF16)
+        compare(f"dual fp32 vs the v2 kernel, {label}",
+                attn_k.dual_axial_attention_eval_fused(a, packed32.attention),
+                attn_k.dual_axial_attention_eval(a, packed32.attention),
+                TOL_F32)
+        compare(f"dual bf16 vs the v2 kernel, {label}", d16,
+                attn_k.dual_axial_attention_eval(a.to(bf),
+                                                 packed16.attention),
+                TOL_BF16)
+        if main:
+            errs["axial_attention_dual"] = e
+        # row 4: each axis on its precomputed qkv (rounded to the storage
+        # type before the kernel and before the plain version alike), then
+        # both axes with their projections against the fp32 reference
+        e, x_ax32, x_ax16 = 0.0, a, a.to(bf)
+        for aw32, aw16, width in zip(packed32.attention, packed16.attention,
+                                     (True, False)):
+            axis = "width" if width else "height"
+            qkv32 = attn_k.project_qkv_v1(x_ax32, aw32)
+            x_ax32 = attn_k.axial_attention_v1_plain(qkv32, aw32.sim,
+                                                     aw32.oaff, width)
+            compare(f"v1 {axis} axis fp32, {label}", attn_k.axial_attention_v1(
+                qkv32, aw32.sim, aw32.oaff, width), x_ax32, TOL_F32)
+            qkv16 = attn_k.project_qkv_v1(x_ax16, aw16)
+            got = attn_k.axial_attention_v1(qkv16, aw16.sim, aw16.oaff, width)
+            e = max(e, compare(
+                f"v1 {axis} axis bf16 vs fp32 plain on the same qkv, {label}",
+                got, attn_k.axial_attention_v1_plain(
+                    qkv16.float(), aw16.sim, aw16.oaff, width), TOL_BF16))
+            x_ax16 = got
+        compare(f"v1 both axes fp32, {label}",
+                attn_k.dual_axial_attention_eval_v1(a, packed32.attention),
+                ref, TOL_F32)
+        e = max(e, compare(f"v1 both axes bf16, {label}", x_ax16, ref,
+                           TOL_BF16))
+        if main:
+            errs["axial_attention_v1"] = e
+        del ref, d16, x_ax32, x_ax16, qkv32, qkv16, got
+    launches = {}
+    want = {"dual": {"axial_attention_dual": 1},
+            "v1": {"axial_attention_v1": 2}}
+    for impl, own in want.items():
+        reset_launches(all_kernels)
+        out16 = fast_forward(packed16, x32, attention_impl=impl)
+        got = read_launches(all_kernels)
+        expect_launches(f"fast_forward(attention_impl={impl!r})", got,
+                        {"tcn_level": len(packed16.tcn), "conv_stack": 1,
+                         **own})
+        launches.update({n: got[n] for n in own})
+        compare(f"fast_forward {impl} bf16 vs module fp32", out16, ref_out,
+                TOL_BF16)
+        compare(f"fast_forward {impl} fp32 vs module fp32",
+                fast_forward(packed32, x32, attention_impl=impl), ref_out,
+                TOL_F32)
+        compare(f"fast_forward {impl} bf16, batch 7, vs module fp32",
+                fast_forward(packed16, x32[:7], attention_impl=impl),
+                ref_out[:7], TOL_BF16)
+        compare(f"fast_forward {impl} fp32, batch 7, vs module fp32",
+                fast_forward(packed32, x32[:7], attention_impl=impl),
+                ref_out[:7], TOL_F32)
+    torch.cuda.synchronize()
+    return errs, launches
+
+
+def mmfi_slice(dev, all_kernels):
+    """Phase 12.  Returns what phase 13 times: the config, the bf16 packed
+    weights, the plain module in bf16, the input, the three kernels' fp32
+    inputs, their bf16 errors and their launches in one
+    ``fast_forward_mmfi``."""
+    import warnings
+
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.metrics import mmfi_metrics as mm
+    from wiflow_tpu_torch.models.fast import fast_forward_mmfi, pack_fast_mmfi
     from wiflow_tpu_torch.models.torch_compat import load_state_dict
-    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    from wiflow_tpu_torch.models.wiflow_mmfi import (
+        MMFiModelConfig, WiFlowMMFiModel,
+    )
+    cfg16 = MMFiModelConfig()
+    cfg32 = MMFiModelConfig(compute_dtype="float32")
+    log(f"phase 12: MM-Fi serving, default MMFiModelConfig "
+        f"({cfg16.compute_dtype}; TCN {cfg16.input_channels} -> "
+        f"{list(cfg16.tcn_channels)}, groups {cfg16.tcn_groups}; projection "
+        f"to {cfg16.tcn_proj_channels}), batch {BATCH}")
+    ref_model = WiFlowMMFiModel(
+        cfg32, device=dev, generator=torch.Generator().manual_seed(SEED + 11))
+    nontrivial_stats(ref_model)
+    sd = ref_model.state_dict()
+    packed32 = pack_fast_mmfi(sd, cfg32, device=dev)
+    packed16 = pack_fast_mmfi(sd, cfg16, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 12)
+    x = torch.randn((BATCH, cfg16.num_antennas, cfg16.num_subcarriers,
+                     cfg16.window_size), generator=gen, device=dev)
+    tcn_in = x.reshape(BATCH, cfg16.input_channels,
+                       cfg16.window_size).transpose(1, 2).contiguous()
+    wproj, bproj = packed32.proj
+    errs, inputs = check_serving_kernels(
+        "MM-Fi ", tcn_in, packed32, packed16,
+        mid=lambda y: F.silu(F.linear(y, wproj, bproj)))
+
+    reset_launches(all_kernels)
+    out16 = fast_forward_mmfi(packed16, x)
+    launches = read_launches(all_kernels)
+    expect_launches("fast_forward_mmfi", launches,
+                    {"tcn_level": 3, "conv_stack": 1, "axial_attention": 2})
+    shape = (BATCH, cfg16.num_keypoints, cfg16.keypoint_dims)
+    if out16.shape != shape or out16.dtype != torch.float32:
+        raise AssertionError(f"fast_forward_mmfi gave {out16.shape} "
+                             f"{out16.dtype}, expected {shape} float32")
+    ref_out = ref_model(x)                     # plain-torch module, fp32
+    compare("fast_forward_mmfi fp32 vs module fp32",
+            fast_forward_mmfi(packed32, x), ref_out, TOL_F32)
+    compare("fast_forward_mmfi bf16 vs module fp32", out16, ref_out, TOL_BF16)
+    compare("fast_forward_mmfi fp32, batch 7, vs module fp32",
+            fast_forward_mmfi(packed32, x[:7]), ref_out[:7], TOL_F32)
+    compare("fast_forward_mmfi bf16, batch 7, vs module fp32",
+            fast_forward_mmfi(packed16, x[:7]), ref_out[:7], TOL_BF16)
+    model16 = load_state_dict(WiFlowMMFiModel(cfg16, device=dev), sd)
+    compare("MM-Fi module bf16 vs module fp32", model16(x), ref_out, TOL_BF16)
+
+    # the served batch scored against seeded targets, on the card and on
+    # the CPU: 1e-4, the spread of fp32 sums in another order (a PCK
+    # fraction moves by 1.4e-5 with each of the 69,632 keypoints that
+    # crosses a threshold).  Seeded weights serve nearly the same pose for
+    # every window, so a second pair (the targets and a noisy copy of
+    # them) spreads the metrics over their range.
+    target = 0.25 * torch.randn(shape, generator=gen, device=dev)
+    noisy = target + 0.03 * torch.randn(shape, generator=gen, device=dev)
+    thresholds = (0.1, 0.2, 0.3, 0.4, 0.5)
+    metrics = {
+        "root_relative_pck_fractions":
+            lambda p, t: mm.root_relative_pck_fractions(p, t, thresholds),
+        "root_aligned_mpjpe": mm.root_aligned_mpjpe,
+        "similarity_transform": mm.similarity_transform,
+        "pa_mpjpe": mm.pa_mpjpe}
+    for what, pred in (("served batch", out16), ("noisy targets", noisy)):
+        for name, fn in metrics.items():
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    card = fn(pred, target)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            host = fn(pred.cpu(), target.cpu())
+            diff = (card.cpu() - host).abs().max().item()
+            log(f"  MM-Fi metric {name}, {what}: card vs CPU "
+                f"max_abs_diff={diff:.3e} (limit 1e-4), value "
+                f"{[round(v, 6) for v in card.flatten()[:5].tolist()]}, host "
+                f"syncs while computing it on the card: {len(caught)}")
+            if card.device != pred.device or not diff <= 1e-4:
+                raise AssertionError(f"MM-Fi metric {name}, {what}: card and "
+                                     f"CPU differ by {diff}")
+        pck = mm.root_relative_pck(pred, target)
+        log(f"  MM-Fi root-relative PCK, {what}: "
+            f"{json.dumps({str(k): round(v, 6) for k, v in pck.items()})}")
+    torch.cuda.synchronize()
+    return dict(cfg=cfg16, packed16=packed16, model16=model16, x=x,
+                inputs=inputs, errs=errs, launches=launches)
+
+
+def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
+    """Phase 13.  Returns the record rows of the v1 and the dual kernel and
+    the MM-Fi times of the three serving kernels."""
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.models.fast import fast_forward, fast_forward_mmfi
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    log(f"phase 13: timings of the attention lowerings and of MM-Fi serving "
+        f"(CUDA events, median of {RUNS}, bf16)")
+    dt = torch.bfloat16
+    a16 = a_in.to(dt)
+    b, h, w, c = a16.shape
+    g = cfg.attention_groups
+    axes = packed16.attention
+    plain_runs = max(3, RUNS // 4)
+
+    # row 4: the kernel's two launches on precomputed projections
+    qkvs, heads, proj_in, x_ax = [], [], [], a16
+    for aw, width in zip(axes, (True, False)):
+        proj_in.append((x_ax, aw))
+        qkv = attn_k.project_qkv_v1(x_ax, aw)
+        qkvs.append((qkv, aw, width))
+        qr = qkv if width else qkv.transpose(1, 2)
+        n, length = (b * h, w) if width else (b * w, h)
+        q, k, v = (t.reshape(n, length, g, c // g).transpose(1, 2)
+                   for t in qr.split(c, dim=-1))
+        # q pre-scaled by s_g; the bias b_g is constant over j and leaves
+        # the softmax as it is
+        heads.append(((q.float() * aw.sim[0][None, :, None, None]).to(dt)
+                      .contiguous(), k.contiguous(), v.contiguous()))
+        x_ax = attn_k.axial_attention_v1(qkv, aw.sim, aw.oaff, width)
+    pos = b * h * w
+    v1_flops = sum(2 * 2 * pos * length * c for length in (w, h))
+    v1_bytes = 2 * (pos * 4 * c * 2 + 4 * (2 * g + 2 * c))
+    att_flops, att_bytes = attention_work(cfg, b, 2)
+    dual_bytes = att_bytes - 2 * pos * c * 2      # no intermediate traffic
+    cases = {
+        "axial_attention_v1": (
+            attn_k.KERNEL_V1,
+            lambda: [attn_k.axial_attention_v1(q, aw.sim, aw.oaff, wd)
+                     for q, aw, wd in qkvs],
+            lambda: [attn_k.axial_attention_v1_plain(q, aw.sim, aw.oaff, wd)
+                     for q, aw, wd in qkvs],
+            lambda: [F.scaled_dot_product_attention(q, k, v, scale=1.0)
+                     for q, k, v in heads],
+            (v1_flops, v1_bytes)),
+        "axial_attention_dual": (
+            attn_k.KERNEL_DUAL,
+            lambda: attn_k.dual_axial_attention_eval_fused(a16, axes),
+            lambda: attn_k.dual_axial_attention_fused_plain(a16, axes),
+            None, (att_flops, dual_bytes)),
+    }
+    record = []
+    for name, (kern, kfn, pfn, lfn, (flops, nbytes)) in cases.items():
+        ms = time_ms(kfn, RUNS)
+        plain_ms = time_ms(pfn, plain_runs)
+        lib_ms = time_ms(lfn, RUNS) if lfn else None
+        bms, by = bound_ms(flops, nbytes, dt)
+        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
+        log(f"  {name} (both axes): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+            f"ms, scaled_dot_product_attention {lib}, bound {bms:.4f} ms "
+            f"({by}; {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB)")
+        record.append({"name": name, "route": "cuda", "source": kern.source,
+                       "replaces": kern.replaces, "launches": launches[name],
+                       "max_abs_err": errs[name], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
+                       "library_ms": lib_ms})
+    proj_ms = time_ms(lambda: [attn_k.project_qkv_v1(xa, aw)
+                               for xa, aw in proj_in], RUNS)
+    lowerings = {
+        "v2": lambda: attn_k.dual_axial_attention_eval(a16, axes),
+        "dual": lambda: attn_k.dual_axial_attention_eval_fused(a16, axes),
+        "v1": lambda: attn_k.dual_axial_attention_eval_v1(a16, axes)}
+    att = {n: time_ms(f, RUNS) for n, f in lowerings.items()}
+    log(f"  dual attention on [{b}, {h}, {w}, {c}], all launches and "
+        f"products: " + ", ".join(f"{n} {t:.4f} ms" for n, t in att.items())
+        + f" (v1's two projections through torch.addmm alone: {proj_ms:.4f} "
+        f"ms)")
+
+    # fast_forward under the three lowerings, in turns within this call
+    impls = ("v2", "dual", "v1")
+    turns = {n: [] for n in impls}
+    for r in range(4):
+        for n in impls[::1 if r % 2 == 0 else -1]:
+            turns[n].append(time_ms(
+                lambda: fast_forward(packed16, x32, attention_impl=n),
+                RUNS // 2))
+    for n in impls:
+        ms = statistics.median(turns[n])
+        log(f"fast_forward bf16 batch {b}, attention_impl={n!r}: {ms:.4f} ms "
+            f"= {b / ms * 1e3:.1f} windows/s (median of 4 turns of "
+            f"{RUNS // 2}: " + " ".join(f"{t:.4f}" for t in turns[n]) + ")")
+
+    # MM-Fi serving
+    m = mmfi
+    mb = m["x"].shape[0]
+    mmfi_times = time_serving_kernels("MM-Fi ", m["cfg"], m["inputs"],
+                                      m["packed16"])
+    torch.cuda.reset_peak_memory_stats()
+    ff_ms = time_ms(lambda: fast_forward_mmfi(m["packed16"], m["x"]), RUNS)
+    peak = torch.cuda.max_memory_allocated()
+    mod_ms = time_ms(lambda: m["model16"](m["x"]), plain_runs)
+    kernels_ms = sum(t[0] for t in mmfi_times.values())
+    log(f"fast_forward_mmfi bf16 batch {mb}: {ff_ms:.4f} ms = "
+        f"{mb / ff_ms * 1e3:.1f} frames/s; plain-torch module bf16: "
+        f"{mod_ms:.4f} ms = {mb / mod_ms * 1e3:.1f} frames/s; the three "
+        f"kernels alone {kernels_ms:.4f} ms, the rest (input cast, layout "
+        f"copies, projection, head, launch gaps) {ff_ms - kernels_ms:.4f} ms; "
+        f"peak device memory while serving {peak / 2**30:.2f} GiB")
+    return record, mmfi_times
+
+
+def build_kernels():
+    """Phase 1.  Returns nvidia-smi's line for the card, the three kernels
+    of the default serving path and every kernel of the port, by name."""
     from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as train_k
     from wiflow_tpu_torch.ops.kernels import build as kbuild
     from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
     from wiflow_tpu_torch.ops.kernels import stage_fused as stage_k
     from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
-
-    # -- phase 1: card, versions, build ------------------------------------
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -1293,12 +1711,15 @@ def main() -> int:
     kernels = {"tcn_level": tcn_k.KERNEL, "conv_stack": conv_k.KERNEL,
                "axial_attention": attn_k.KERNEL}
     all_kernels = {**kernels,
+                   "axial_attention_v1": attn_k.KERNEL_V1,
+                   "axial_attention_dual": attn_k.KERNEL_DUAL,
                    **{n: getattr(train_k, a) for n, a in KERNEL_ATTRS.items()},
                    **{n: getattr(stage_k, a) for n, a in STAGE_ATTRS.items()}}
     libraries = sorted({k.name for k in all_kernels.values()})
     t0 = time.perf_counter()
     secs = kbuild.build(libraries)
-    log(f"kernel build: {time.perf_counter() - t0:.1f} s wall "
+    log(f"kernel build, {len(libraries)} libraries: "
+        f"{time.perf_counter() - t0:.1f} s wall "
         + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     for lib in libraries:
         path = kbuild.BUILD_DIR / f"{lib}.log"
@@ -1312,8 +1733,22 @@ def main() -> int:
     log("TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
         f"{torch.backends.cuda.matmul.allow_tf32}, "
         f"torch.backends.cudnn.allow_tf32 = {torch.backends.cudnn.allow_tf32}")
+    return smi, kernels, all_kernels
 
-    dev = torch.device("cuda")
+
+@torch.no_grad()
+def serving_phases(dev, kernels, all_kernels):
+    """Phases 2-4 and 11-13: everything that serves.  Returns the record
+    rows of the five eval kernels."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.eval.streaming import (
+        make_stream_infer, sliding_windows,
+    )
+    from wiflow_tpu_torch.models.fast import decode, fast_forward, pack_fast
+    from wiflow_tpu_torch.models.torch_compat import load_state_dict
+    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+
     cfg16 = ModelConfig()
     cfg32 = ModelConfig(compute_dtype="float32")
     gen = torch.Generator().manual_seed(SEED)
@@ -1329,149 +1764,108 @@ def main() -> int:
 
     # -- phase 2: each kernel vs its plain version at main-path shapes ------
     log(f"phase 2: kernels vs plain versions, batch {b}")
-    errs = {}
-    with torch.no_grad():
-        h = x32.transpose(1, 2).contiguous()        # [B, T, 540]
-        tcn_in = h
-        e = 0.0
-        for i, (l32, l16) in enumerate(zip(packed32.tcn, packed16.tcn)):
-            ref = tcn_k.tcn_level_plain(h, l32)
-            compare(f"tcn level {i} fp32", tcn_k.tcn_level(h, l32), ref,
-                    TOL_F32)
-            e = max(e, compare(f"tcn level {i} bf16",
-                               tcn_k.tcn_level(h.to(torch.bfloat16), l16),
-                               ref, TOL_BF16))
-            h = ref
-        errs["tcn_level"] = e
-        rows = h.reshape(b * t, -1)                  # [B*T, 240]
-        ref = conv_k.conv_stack_plain(rows, packed32.conv)
-        compare("conv stack fp32", conv_k.fused_conv_stack_eval(
-            rows, packed32.conv), ref, TOL_F32)
-        errs["conv_stack"] = compare(
-            "conv stack bf16", conv_k.fused_conv_stack_eval(
-                rows.to(torch.bfloat16), packed16.conv), ref, TOL_BF16)
-        # 101 rows leave the last thread block part-filled
-        compare("conv stack fp32, 101 rows", conv_k.fused_conv_stack_eval(
-            rows[:101], packed32.conv), ref[:101], TOL_F32)
-        compare("conv stack bf16, 101 rows", conv_k.fused_conv_stack_eval(
-            rows[:101].to(torch.bfloat16), packed16.conv), ref[:101],
-            TOL_BF16)
-        a_in = ref.reshape(b, t, *ref.shape[1:]).permute(0, 3, 1, 2)
-        a_in = a_in.contiguous()                     # [B, 15, 20, 64]
-        ref_dev = attn_k.axial_attention_plain(
-            attn_k.axial_attention_plain(a_in, packed32.attention[0], True),
-            packed32.attention[1], False)
-        compare("attention fp32", attn_k.dual_axial_attention_eval(
-            a_in, packed32.attention), ref_dev, TOL_F32)
-        errs["axial_attention"] = compare(
-            "attention bf16", attn_k.dual_axial_attention_eval(
-                a_in.to(torch.bfloat16), packed16.attention), ref_dev,
-            TOL_BF16)
-        del ref_dev
-        torch.cuda.synchronize()
+    errs, inputs = check_serving_kernels(
+        "", x32.transpose(1, 2).contiguous(), packed32, packed16)
+    a_in = inputs[2]                                 # [B, 15, 20, 64]
 
-        # -- phase 3: the slice end to end ----------------------------------
-        log(f"phase 3: fast_forward at batch {b} (bf16) and streaming")
-        for k in all_kernels.values():
-            k.launches = 0
-        out16 = fast_forward(packed16, x32)
-        torch.cuda.synchronize()
-        launches = {n: k.launches for n, k in kernels.items()}
-        log(f"kernels launched by fast_forward: {json.dumps(launches)}")
-        if not all(launches.values()):
-            raise AssertionError(f"a kernel did not run: {launches}")
-        if out16.shape != (b, 15, 2) or out16.dtype != torch.float32:
-            raise AssertionError(f"fast_forward gave {out16.shape} "
-                                 f"{out16.dtype}")
-        ref_out = ref_model(x32)                    # plain-torch module, fp32
-        compare("fast_forward fp32 vs module fp32",
-                fast_forward(packed32, x32), ref_out, TOL_F32)
-        compare("fast_forward bf16 vs module fp32", out16, ref_out, TOL_BF16)
-        # batch 7 leaves the last thread block of the TCN and of the width
-        # attention part-filled
-        compare("fast_forward fp32, batch 7, vs module fp32",
-                fast_forward(packed32, x32[:7]), ref_out[:7], TOL_F32)
-        compare("fast_forward bf16, batch 7, vs module fp32",
-                fast_forward(packed16, x32[:7]), ref_out[:7], TOL_BF16)
-        model16 = load_state_dict(WiFlowPoseModel(cfg16, device=dev), sd)
-        compare("module bf16 vs module fp32", model16(x32), ref_out, TOL_BF16)
+    # -- phase 3: the slice end to end --------------------------------------
+    log(f"phase 3: fast_forward at batch {b} (bf16) and streaming")
+    reset_launches(all_kernels)
+    out16 = fast_forward(packed16, x32)
+    launches = read_launches(all_kernels)
+    expect_launches("fast_forward", launches,
+                    {"tcn_level": len(packed16.tcn), "conv_stack": 1,
+                     "axial_attention": 2})
+    if out16.shape != (b, 15, 2) or out16.dtype != torch.float32:
+        raise AssertionError(f"fast_forward gave {out16.shape} "
+                             f"{out16.dtype}")
+    ref_out = ref_model(x32)                    # plain-torch module, fp32
+    compare("fast_forward fp32 vs module fp32",
+            fast_forward(packed32, x32), ref_out, TOL_F32)
+    compare("fast_forward bf16 vs module fp32", out16, ref_out, TOL_BF16)
+    # batch 7 leaves the last thread block of the TCN and of the width
+    # attention part-filled
+    compare("fast_forward fp32, batch 7, vs module fp32",
+            fast_forward(packed32, x32[:7]), ref_out[:7], TOL_F32)
+    compare("fast_forward bf16, batch 7, vs module fp32",
+            fast_forward(packed16, x32[:7]), ref_out[:7], TOL_BF16)
+    model16 = load_state_dict(WiFlowPoseModel(cfg16, device=dev), sd)
+    compare("module bf16 vs module fp32", model16(x32), ref_out, TOL_BF16)
 
-        sgen = torch.Generator(device=dev).manual_seed(SEED + 2)
-        stream = torch.randn((b + t - 1, cfg16.num_subcarriers),
-                             generator=sgen, device=dev)
-        infer = make_stream_infer(lambda w: fast_forward(packed16, w),
-                                  device=dev)
-        for k in all_kernels.values():
-            k.launches = 0
-        poses = infer(stream)
-        torch.cuda.synchronize()
-        stream_launches = {n: k.launches for n, k in kernels.items()}
-        log(f"kernels launched by the stream: {json.dumps(stream_launches)}")
-        if not all(stream_launches.values()):
-            raise AssertionError(f"a kernel did not run: {stream_launches}")
-        direct = fast_forward(packed16, sliding_windows(stream, t))
-        compare("stream vs fast_forward on the same windows", poses, direct,
-                TOL_F32)
-        stream_ms = time_ms(lambda: infer(stream), RUNS)
-        log(f"stream of {stream.shape[0]} frames ({b} windows, bf16): "
-            f"{stream_ms:.4f} ms = {b / stream_ms * 1e3:.1f} windows/s "
-            f"(CUDA events, median of {RUNS})")
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 2)
+    stream = torch.randn((b + t - 1, cfg16.num_subcarriers),
+                         generator=sgen, device=dev)
+    infer = make_stream_infer(lambda w: fast_forward(packed16, w),
+                              device=dev)
+    reset_launches(all_kernels)
+    poses = infer(stream)
+    stream_launches = read_launches(all_kernels)
+    log(f"kernels launched by the stream: "
+        f"{json.dumps({n: stream_launches[n] for n in kernels})}")
+    if not all(stream_launches[n] for n in kernels):
+        raise AssertionError(f"a kernel did not run: {stream_launches}")
+    direct = fast_forward(packed16, sliding_windows(stream, t))
+    compare("stream vs fast_forward on the same windows", poses, direct,
+            TOL_F32)
+    stream_ms = time_ms(lambda: infer(stream), RUNS)
+    log(f"stream of {stream.shape[0]} frames ({b} windows, bf16): "
+        f"{stream_ms:.4f} ms = {b / stream_ms * 1e3:.1f} windows/s "
+        f"(CUDA events, median of {RUNS})")
 
-        # -- phase 4: timings ----------------------------------------------
-        log(f"phase 4: timings (CUDA events, median of {RUNS})")
-        tin16 = tcn_in.to(torch.bfloat16)
-        rows16 = rows.to(torch.bfloat16)
-        a16 = a_in.to(torch.bfloat16)
-        def tcn_plain_stack():
-            y = tin16
-            for lv in packed16.tcn:
-                y = tcn_k.tcn_level_plain(y, lv)
-            return y
+    # -- phase 4: timings ---------------------------------------------------
+    log(f"phase 4: timings (CUDA events, median of {RUNS})")
+    times = time_serving_kernels("", cfg16, inputs, packed16)
+    a16 = a_in.to(torch.bfloat16)
+    dec_in = attn_k.dual_axial_attention_eval(a16, packed16.attention)
+    dec_ms = time_ms(lambda: decode(packed16, dec_in), RUNS)
+    log(f"  decoder (3x3 and 1x1 conv in torch, mean): {dec_ms:.4f} ms")
+    ff_ms = time_ms(lambda: fast_forward(packed16, x32), RUNS)
+    mod_ms = time_ms(lambda: model16(x32), max(3, RUNS // 4))
+    log(f"fast_forward bf16 batch {b}: {ff_ms:.4f} ms = "
+        f"{b / ff_ms * 1e3:.1f} windows/s; plain-torch module bf16: "
+        f"{mod_ms:.4f} ms = {b / mod_ms * 1e3:.1f} windows/s")
+    rest = ff_ms - dec_ms - sum(t[0] for t in times.values())
+    log(f"  fast_forward less kernels and decoder (input cast, layout "
+        f"copies, launch gaps): {rest:.4f} ms")
+    log(f"peak device memory: "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del dec_in, a16, stream, poses, direct, model16, inputs
 
-        cases = {
-            "tcn_level": (lambda: tcn_k.fused_tcn_eval(tin16, packed16.tcn),
-                          tcn_plain_stack, tcn_work(cfg16, b, 2)),
-            "conv_stack": (lambda: conv_k.fused_conv_stack_eval(
-                rows16, packed16.conv),
-                lambda: conv_k.conv_stack_plain(rows16, packed16.conv),
-                conv_work(cfg16, b * t, 2)),
-            "axial_attention": (lambda: attn_k.dual_axial_attention_eval(
-                a16, packed16.attention),
-                lambda: attn_k.axial_attention_plain(
-                    attn_k.axial_attention_plain(
-                        a16, packed16.attention[0], True),
-                    packed16.attention[1], False),
-                attention_work(cfg16, b, 2)),
-        }
-        record = []
-        for name, (kfn, pfn, (flops, nbytes)) in cases.items():
-            ms = time_ms(kfn, RUNS)
-            plain_ms = time_ms(pfn, max(3, RUNS // 4))
-            bms, by = bound_ms(flops, nbytes, torch.bfloat16)
-            log(f"  {name}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"bound {bms:.4f} ms ({by}; {flops / 1e9:.2f} GFLOP, "
-                f"{nbytes / 1e9:.4f} GB), fp32 CUDA-core bound "
-                f"{flops / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms")
-            record.append({"name": name, "route": "cuda",
-                           "source": kernels[name].source,
-                           "replaces": kernels[name].replaces,
-                           "launches": launches[name],
-                           "max_abs_err": errs[name], "ms": ms,
-                           "plain_ms": plain_ms, "bound_ms": bms,
-                           "bound_by": by, "library_ms": None})
-        dec_in = attn_k.dual_axial_attention_eval(a16, packed16.attention)
-        dec_ms = time_ms(lambda: decode(packed16, dec_in), RUNS)
-        log(f"  decoder (3x3 and 1x1 conv in torch, mean): {dec_ms:.4f} ms")
-        ff_ms = time_ms(lambda: fast_forward(packed16, x32), RUNS)
-        mod_ms = time_ms(lambda: model16(x32), max(3, RUNS // 4))
-        log(f"fast_forward bf16 batch {b}: {ff_ms:.4f} ms = "
-            f"{b / ff_ms * 1e3:.1f} windows/s; plain-torch module bf16: "
-            f"{mod_ms:.4f} ms = {b / mod_ms * 1e3:.1f} windows/s")
-        rest = ff_ms - dec_ms - sum(r["ms"] for r in record)
-        log(f"  fast_forward less kernels and decoder (input cast, layout "
-            f"copies, launch gaps): {rest:.4f} ms")
-        log(f"peak device memory: "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # -- phases 11-13: the other lowerings of fast_forward, and MM-Fi -------
+    v_errs, v_launches = check_attention_variants(
+        all_kernels, a_in, packed32, packed16, x32, ref_out)
+    mmfi = mmfi_slice(dev, all_kernels)
+    v_record, mmfi_times = variant_timings(cfg16, a_in, packed16, x32,
+                                           v_launches, v_errs, mmfi)
+
+    record = []
+    for name, (ms, plain_ms, bms, by) in times.items():
+        m_ms, m_plain, m_bound, m_by = mmfi_times[name]
+        record.append({"name": name, "route": "cuda",
+                       "source": kernels[name].source,
+                       "replaces": kernels[name].replaces,
+                       "launches": launches[name],
+                       "max_abs_err": errs[name], "ms": ms,
+                       "plain_ms": plain_ms, "bound_ms": bms,
+                       "bound_by": by, "library_ms": None,
+                       "mmfi_launches": mmfi["launches"][name],
+                       "mmfi_max_abs_err": mmfi["errs"][name],
+                       "mmfi_ms": m_ms, "mmfi_plain_ms": m_plain,
+                       "mmfi_bound_ms": m_bound, "mmfi_bound_by": m_by})
+    return record + v_record, cfg16
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    smi, kernels, all_kernels = build_kernels()
+    dev = torch.device("cuda")
+
+    # -- phases 2-4 and 11-13: the serving paths -----------------------------
+    record, cfg16 = serving_phases(dev, kernels, all_kernels)
+    torch.cuda.empty_cache()
 
     # -- phases 5-7: the training path ---------------------------------------
     c, g = cfg16.conv_channels[-1], cfg16.attention_groups

@@ -11,8 +11,13 @@ import torch
 
 from wiflow_tpu_torch.core.config import ModelConfig, resolve_device
 from wiflow_tpu_torch.eval.streaming import make_stream_infer
-from wiflow_tpu_torch.models.fast import pack_fast
+from wiflow_tpu_torch.models.fast import (
+    fast_forward_mmfi, pack_fast, pack_fast_mmfi,
+)
 from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+from wiflow_tpu_torch.models.wiflow_mmfi import (
+    MMFiModelConfig, WiFlowMMFiModel,
+)
 from wiflow_tpu_torch.ops.kernels import (
     axial_attention, axial_attention_train, conv_stack, tcn_level,
 )
@@ -40,6 +45,7 @@ spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = [m for m in set(sys.modules) - before
           if m.split(".")[0] in {BLOCKED!r} and sys.modules[m] is not None]
 assert not leaked, leaked
+print(" ".join(names))
 print("imported", len(names))
 """
 
@@ -55,6 +61,9 @@ def test_port_imports_no_jax_and_no_wiflow_tpu():
     assert r.returncode == 0, r.stdout + r.stderr
     n = int(r.stdout.split()[-1])
     assert n >= 15, r.stdout
+    for module in ("models.wiflow_mmfi", "metrics.mmfi_metrics",
+                   "models.fast", "ops.kernels.axial_attention"):
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
 
 
 def test_chip_smoke_fails_without_cuda():
@@ -90,6 +99,39 @@ def test_kernel_refuses_instead_of_computing_on_the_cpu(module):
     assert module.KERNEL.launches == 0
 
 
+@pytest.mark.parametrize("kernel", [axial_attention.KERNEL_V1,
+                                    axial_attention.KERNEL_DUAL],
+                         ids=lambda k: k.symbol)
+def test_attention_variant_kernel_refuses_instead_of_computing_on_the_cpu(
+        kernel):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel.load()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        kernel.launch()
+    assert kernel.launches == 0
+    assert kernel.source == f"wiflow_tpu_torch/csrc/{kernel.name}.cu"
+    assert os.path.exists(os.path.join(REPO, kernel.source))
+
+
+def test_mmfi_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    small = MMFiModelConfig(num_subcarriers=12, tcn_channels=(36, 24),
+                            tcn_groups=6, conv_channels=(4, 8, 16, 32),
+                            attention_groups=4, compute_dtype="float32")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        WiFlowMMFiModel(small)
+    sd = WiFlowMMFiModel(small, device="cpu").state_dict()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        pack_fast_mmfi(sd, small)
+    packed = pack_fast_mmfi(sd, small, device="cpu")
+    assert packed.device.type == "cpu"
+    out = fast_forward_mmfi(packed, torch.zeros(2, 3, 12, 10))
+    assert out.shape == (2, 17, 3) and out.device.type == "cpu"
+
+
 def test_wrappers_reject_other_devices():
     sd = WiFlowPoseModel(SMALL, device="cpu").state_dict()
     packed = pack_fast(sd, SMALL, device="cpu")
@@ -103,6 +145,13 @@ def test_wrappers_reject_other_devices():
     with pytest.raises(ValueError, match="meta"):
         axial_attention.dual_axial_attention_eval(
             torch.empty(2, 15, 20, 32, device=meta), packed.attention)
+    for fn in (axial_attention.dual_axial_attention_eval_fused,
+               axial_attention.dual_axial_attention_eval_v1):
+        with pytest.raises(ValueError, match="meta"):
+            fn(torch.empty(2, 15, 20, 32, device=meta), packed.attention)
+    with pytest.raises(ValueError, match="meta"):
+        axial_attention.axial_attention_v1(
+            torch.empty(6, 20, 96, device=meta), *packed.attention[0][2:])
     x = torch.from_numpy(np.zeros((1, 40, 20), np.float32))
     with pytest.raises(ValueError, match="CSI windows"):
         from wiflow_tpu_torch.models.fast import fast_forward

@@ -4,10 +4,14 @@ A copy of the fields of ``wiflow_tpu.core.config`` that the port reads,
 with the same defaults (the reference architecture and trainer, ref
 models/pose_model.py:16-53 and train.py:105-121).  The JAX package's
 config module is not imported: importing anything under ``wiflow_tpu``
-runs its package ``__init__``, which loads JAX.  Of the lowering switches
-only ``tcn_train_impl`` and ``conv_train_impl`` have a counterpart: they
-select the stage-fused train path (``ops/kernels/stage_fused.py``).  The
-others (``attention*_impl``, ``rng_impl``, ``scan_epochs``,
+runs its package ``__init__``, which loads JAX.  Of the config's lowering
+switches only ``tcn_train_impl`` and ``conv_train_impl`` have a
+counterpart: they select the stage-fused train path
+(``ops/kernels/stage_fused.py``).  The serving path's choice of attention
+kernel is, as in the reference, not a config field but the
+``attention_impl`` argument of ``models/fast.py::fast_forward`` (``"v2"``,
+``"dual"`` or ``"v1"``).  The others (``attention_module_impl``,
+``rng_impl``, ``scan_epochs``,
 ``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none.
 """
 

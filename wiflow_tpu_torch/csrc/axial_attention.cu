@@ -25,15 +25,13 @@
 // (weights streamed through 32 x 64 tiles), keeps q, k, v in fp32 in shared
 // memory, and one thread per (sequence, query, group) does the logits,
 // softmax and weighted sum in registers.  Logits never leave the chip.
-#include <cfloat>
-
-#include "common.cuh"
+// The projection and the per-thread attention are shared with the v1 and
+// the dual kernel (axial_attention_eval.cuh).
+#include "axial_attention_eval.cuh"
 
 namespace {
 
 using wf::kThreads;
-constexpr int kGroupChannels = 8;
-constexpr int kMaxLen = 32;
 
 template <typename T>
 struct AttnArgs {
@@ -59,7 +57,7 @@ template <typename T>
 __global__ void __launch_bounds__(kThreads) axial_attention_kernel(
     AttnArgs<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const int c = a.c, c3 = 3 * c, ldq = c3 + 4;
+  const int c = a.c, ldq = 3 * c + 4;
   const int npos = a.seqs_per_block * a.len;
   float* ws = reinterpret_cast<float*>(smem);              // weight tile
   float* qkv = ws + wf::kTileFloats;                       // [npos, ldq]
@@ -74,70 +72,15 @@ __global__ void __launch_bounds__(kThreads) axial_attention_kernel(
                        : wf::from_f<T>(0.f);
   }
   __syncthreads();
-
-  // QKV projection, fp32 result kept in shared memory
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  for (int n0 = 0; n0 < c3; n0 += wf::kTileN) {
-    float acc[wf::kMaxRows][wf::kColsPerThread];
-    wf::zero(acc);
-    wf::gemm_acc(acc, xs, c, npos, a.wq, c, c3, n0, ws);
-#pragma unroll
-    for (int r = 0; r < wf::kMaxRows; ++r) {
-      const int row = ty + 16 * r;
-      if (row >= npos) continue;
-#pragma unroll
-      for (int k = 0; k < wf::kColsPerThread; ++k) {
-        const int col = n0 + tx * 4 + k;
-        if (col < c3) qkv[row * ldq + col] = acc[r][k] + a.bq[col];
-      }
-    }
-  }
-  __syncthreads();
+  wf::project_qkv(xs, npos, c, a.wq, a.bq, qkv, ldq, ws);
 
   const int len = a.len, groups = a.groups;
   for (int e = threadIdx.x; e < nvalid * len * groups; e += kThreads) {
     const int g = e % groups, rest = e / groups;
     const int i = rest % len, s = rest / len;
-    const float* base = qkv + (s * len) * ldq;
-    float q[kGroupChannels];
-#pragma unroll
-    for (int cc = 0; cc < kGroupChannels; ++cc)
-      q[cc] = base[i * ldq + g * kGroupChannels + cc];
-    const float ss = a.sim[g], sb = a.sim[groups + g];
-    float lg[kMaxLen];
-    float m = -FLT_MAX;
-#pragma unroll
-    for (int j = 0; j < kMaxLen; ++j) {
-      if (j < len) {
-        const float* k = base + j * ldq + c + g * kGroupChannels;
-        float dot = 0.f;
-#pragma unroll
-        for (int cc = 0; cc < kGroupChannels; ++cc) dot += q[cc] * k[cc];
-        lg[j] = dot * ss + sb;
-        m = fmaxf(m, lg[j]);
-      }
-    }
-    float den = 0.f;
-    float o[kGroupChannels];
-#pragma unroll
-    for (int cc = 0; cc < kGroupChannels; ++cc) o[cc] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxLen; ++j) {
-      if (j < len) {
-        const float p = expf(lg[j] - m);
-        den += p;
-        const float* v = base + j * ldq + 2 * c + g * kGroupChannels;
-#pragma unroll
-        for (int cc = 0; cc < kGroupChannels; ++cc) o[cc] += p * v[cc];
-      }
-    }
-    const float r = 1.0f / den;
-    T* dst = a.out + seq_base(a, s0 + s) + i * a.seq_stride;
-#pragma unroll
-    for (int cc = 0; cc < kGroupChannels; ++cc) {
-      const int ch = g * kGroupChannels + cc;
-      dst[ch] = wf::from_f<T>(o[cc] * r * a.oaff[ch] + a.oaff[c + ch]);
-    }
+    wf::attend_store(qkv + (s * len) * ldq, ldq, c, len, i, g, groups, a.sim,
+                     a.oaff,
+                     a.out + seq_base(a, s0 + s) + i * a.seq_stride);
   }
 }
 
@@ -147,7 +90,7 @@ int run(const void* x, void* out, int nseq, int len, int c, int groups,
         long long seq_stride, int seqs_per_block, const void* wq,
         const void* bq, const void* sim, const void* oaff, size_t smem_bytes,
         void* stream) {
-  if (c != groups * kGroupChannels || len > kMaxLen ||
+  if (c != groups * wf::kGroupChannels || len > wf::kMaxLen ||
       seqs_per_block * len > 16 * wf::kMaxRows)
     return (int)cudaErrorInvalidValue;
   AttnArgs<T> a{static_cast<const T*>(x), static_cast<T*>(out), nseq, len, c,

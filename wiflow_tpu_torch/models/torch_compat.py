@@ -4,7 +4,8 @@ The port's modules use the reference torch ``state_dict`` names, so a
 ``best_pose_model.pth`` loads as it is.  A JAX ``{'params',
 'batch_stats'}`` tree (as numpy arrays) maps onto the same names through
 this module's own copy of ``wiflow_tpu/models/torch_compat.py::wiflow_spec``
-and its inverse layout functions — name reshuffling and transposes only:
+(and ``wiflow_mmfi_spec`` for the MM-Fi model) and its inverse layout
+functions — name reshuffling and transposes only:
 
   grouped Conv1d  (K, G, ci_g, co_g) -> (Co, Ci/G, K)
   pointwise Conv1d (Ci, Co)           -> (Co, Ci, 1)
@@ -22,6 +23,7 @@ import torch
 from torch import nn
 
 from wiflow_tpu_torch.core.config import ModelConfig
+from wiflow_tpu_torch.models.wiflow_mmfi import MMFiModelConfig
 
 Path = Tuple[str, ...]
 # (torch_key, collection, flax_path, layout function flax -> torch)
@@ -64,10 +66,9 @@ def _bn_specs(torch_prefix: str, flax_path: Path) -> List[Spec]:
     ]
 
 
-def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
+def _tcn_specs(n_in: int, channels) -> List[Spec]:
     specs: List[Spec] = []
-    n_in = cfg.num_subcarriers
-    for i, n_out in enumerate(cfg.tcn_channels):
+    for i, n_out in enumerate(channels):
         tp, fp = f"tcn.network.{i}", ("tcn", f"network_{i}")
         specs += [
             (f"{tp}.conv1_group.weight", "params",
@@ -86,6 +87,11 @@ def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
                           fp + ("downsample_weight",), _pw1d_inv))
             specs += _bn_specs(f"{tp}.downsample.1", fp + ("downsample_bn",))
         n_in = n_out
+    return specs
+
+
+def _conv_stack_specs(n_blocks: int) -> List[Spec]:
+    specs: List[Spec] = []
 
     def conv_block(torch_prefix: str, flax_name: str) -> None:
         fp = (flax_name,)
@@ -102,16 +108,26 @@ def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
                                fp + ("downsample_bn",)))
 
     conv_block("up", "up")
-    for j in range(len(cfg.conv_channels)):
+    for j in range(n_blocks):
         conv_block(f"residual_blocks.{j}", f"residual_blocks_{j}")
+    return specs
 
+
+def _attention_specs(torch_name: str) -> List[Spec]:
+    specs: List[Spec] = []
     for axis in ("width_axis", "height_axis"):
-        tp, fp = f"attention.{axis}", ("attention", axis)
+        tp, fp = f"{torch_name}.{axis}", ("attention", axis)
         specs.append((f"{tp}.qkv_transform.weight", "params",
                       fp + ("qkv_weight",), _pw1d_inv))
         for bn in ("bn_qkv", "bn_similarity", "bn_output"):
             specs += _bn_specs(f"{tp}.{bn}", fp + (bn,))
+    return specs
 
+
+def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
+    specs = _tcn_specs(cfg.num_subcarriers, cfg.tcn_channels)
+    specs += _conv_stack_specs(len(cfg.conv_channels))
+    specs += _attention_specs("attention")
     specs += [
         ("decoder.0.weight", "params", ("decoder_conv1_weight",),
          _conv3x3_inv),
@@ -125,6 +141,35 @@ def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
     return specs
 
 
+def wiflow_mmfi_spec(cfg: MMFiModelConfig = MMFiModelConfig()) -> List[Spec]:
+    """Spec of the MM-Fi model (the port's copy of the JAX package's
+    ``wiflow_mmfi_spec``): the 342-channel TCN, ``tcn_proj``, ``att`` (not
+    ``attention``) and the ``final_conv`` head."""
+    specs = _tcn_specs(cfg.input_channels, cfg.tcn_channels)
+    specs.append(("tcn_proj.0.weight", "params", ("tcn_proj_weight",),
+                  _pw1d_inv))
+    specs += _bn_specs("tcn_proj.1", ("tcn_proj_bn",))
+    specs += _conv_stack_specs(len(cfg.conv_channels))
+    specs += _attention_specs("att")
+    specs += [
+        ("final_conv.0.weight", "params", ("final_conv1_weight",),
+         _conv1x1_inv),
+        ("final_conv.0.bias", "params", ("final_conv1_bias",), _ident),
+        ("final_conv.3.weight", "params", ("final_conv2_weight",),
+         _conv1x1_inv),
+        ("final_conv.3.bias", "params", ("final_conv2_bias",), _ident),
+    ]
+    specs += _bn_specs("final_conv.1", ("final_bn",))
+    return specs
+
+
+def spec_for(cfg) -> List[Spec]:
+    """The spec of the model that ``cfg`` configures."""
+    if isinstance(cfg, MMFiModelConfig):
+        return wiflow_mmfi_spec(cfg)
+    return wiflow_spec(cfg)
+
+
 def _get_path(tree: Mapping[str, Any], path: Path) -> Any:
     node = tree
     for key in path:
@@ -133,16 +178,17 @@ def _get_path(tree: Mapping[str, Any], path: Path) -> Any:
 
 
 def state_dict_from_jax(variables: Mapping[str, Any],
-                        cfg: ModelConfig = ModelConfig()
+                        cfg: ModelConfig | MMFiModelConfig = ModelConfig()
                         ) -> Dict[str, torch.Tensor]:
-    """JAX ``{'params', 'batch_stats'}`` tree -> the port's ``state_dict``.
+    """JAX ``{'params', 'batch_stats'}`` tree -> the port's ``state_dict``,
+    of the flagship model or, given an ``MMFiModelConfig``, the MM-Fi one.
 
     Leaves are numpy arrays (or anything ``np.asarray`` takes); values are
     copied as float32 CPU tensors, bit for bit.  A leaf missing from the
     tree raises ``KeyError`` naming its path.
     """
     out: Dict[str, torch.Tensor] = {}
-    for torch_key, coll, path, inv in wiflow_spec(cfg):
+    for torch_key, coll, path, inv in spec_for(cfg):
         try:
             leaf = _get_path(variables[coll], path)
         except KeyError:

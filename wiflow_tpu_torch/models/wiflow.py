@@ -286,6 +286,29 @@ class DualAxialAttention(nn.Module):
         return self.height_axis(self.width_axis(x))
 
 
+@torch.no_grad()
+def reset_conv_parameters(module: nn.Module,
+                          generator: torch.Generator | None = None) -> None:
+    """The reference's init of every conv under ``module``, drawn from
+    ``generator`` (a CPU ``torch.Generator``; seed 0 when None):
+    kaiming-normal fan-out for Conv1d, torch's default uniform for Conv2d.
+    BatchNorms stay at identity."""
+    gen = generator or torch.Generator().manual_seed(0)
+    for m in module.modules():
+        if isinstance(m, nn.Conv1d):
+            fan_out = m.out_channels * m.kernel_size[0]
+            w = torch.randn(m.weight.shape, generator=gen)
+            m.weight.copy_(w * math.sqrt(2.0 / fan_out))
+        elif isinstance(m, nn.Conv2d):
+            fan_in = m.weight[0].numel()
+            bound = math.sqrt(1.0 / fan_in)
+            m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
+                           * 2 * bound - bound)
+            if m.bias is not None:
+                m.bias.copy_(torch.rand(m.bias.shape, generator=gen)
+                             * 2 * bound - bound)
+
+
 class WiFlowPoseModel(nn.Module):
     """Full WiFlow encoder-decoder (ref models/pose_model.py:9-97).
 
@@ -327,22 +350,8 @@ class WiFlowPoseModel(nn.Module):
         self.reset_parameters(generator)
         self.eval()
 
-    @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator | None = None):
-        gen = generator or torch.Generator().manual_seed(0)
-        for m in self.modules():
-            if isinstance(m, nn.Conv1d):
-                fan_out = m.out_channels * m.kernel_size[0]
-                w = torch.randn(m.weight.shape, generator=gen)
-                m.weight.copy_(w * math.sqrt(2.0 / fan_out))
-            elif isinstance(m, nn.Conv2d):
-                fan_in = m.weight[0].numel()
-                bound = math.sqrt(1.0 / fan_in)
-                m.weight.copy_(torch.rand(m.weight.shape, generator=gen)
-                               * 2 * bound - bound)
-                if m.bias is not None:
-                    m.bias.copy_(torch.rand(m.bias.shape, generator=gen)
-                                 * 2 * bound - bound)
+        reset_conv_parameters(self, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cfg = self.config

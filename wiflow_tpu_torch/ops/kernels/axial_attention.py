@@ -1,9 +1,11 @@
-"""Fused eval dual axial attention: CUDA kernel, plain version, packer.
+"""Fused eval dual axial attention: CUDA kernels, plain versions, packer.
 
-Counterpart of ``wiflow_tpu/ops/pallas/axial_attention.py``
-(``dual_axial_attention_eval_v2`` over ``axial_attention_eval_v2``).  On
-``x [B, H, W, C]``, attention runs along W (L = W) and then along H
-(L = H).  Per axis, with the eval BNs folded:
+Counterpart of ``wiflow_tpu/ops/pallas/axial_attention.py``, all three of
+its lowerings: ``dual_axial_attention_eval_v2`` (one kernel per axis, QKV
+projection inside; the default), ``dual_axial_attention_eval_fused`` (both
+axes in one kernel) and ``dual_axial_attention_eval`` (v1: the projection
+outside the kernel).  On ``x [B, H, W, C]``, attention runs along W
+(L = W) and then along H (L = H).  Per axis, with the eval BNs folded:
 
     qkv = x @ Wq + bq                         bn_qkv folded into Wq, bq
     logit[g, i, j] = (q_i . k_j)_g * s_g + b_g    bn_similarity
@@ -15,6 +17,13 @@ the TPU kernel's scrambled order was a tiling choice, so the port needs no
 permutation downstream.  On a CUDA tensor each axis is one launch of
 ``csrc/axial_attention.cu``, which reads the height axis's columns in
 place through a sequence stride; on a CPU tensor the plain version runs.
+
+The three lowerings compute one function and differ in their rounding
+points in bf16.  v2 and the fused kernel keep qkv in fp32 and round the
+first axis's output to ``x.dtype`` (v2 through device memory, the fused
+kernel in its on-chip intermediate), so they agree to rounding; v1 also
+rounds qkv to ``x.dtype``, because its projection is a ``torch.addmm``
+outside the kernel whose result the kernel reads from device memory.
 """
 
 from __future__ import annotations
@@ -25,7 +34,7 @@ from typing import Mapping, NamedTuple, Tuple
 import torch
 
 from wiflow_tpu_torch.ops.kernels.build import (
-    CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
+    SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
 )
 from wiflow_tpu_torch.ops.norm import folded_bn
 
@@ -34,8 +43,18 @@ KERNEL = CudaKernel("axial_attention", "axial_attention_forward",
                     [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
                      _P, _P, _P, _P, ctypes.c_size_t, _P],
                     replaces="wiflow_tpu/ops/pallas/axial_attention.py:291")
+KERNEL_V1 = CudaKernel("axial_attention_v1", "axial_attention_v1_forward",
+                       [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
+                        _P, _P, ctypes.c_size_t, _P],
+                       replaces="wiflow_tpu/ops/pallas/axial_attention.py:125")
+KERNEL_DUAL = CudaKernel("axial_attention_dual",
+                         "axial_attention_dual_forward",
+                         [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
+                          ctypes.c_size_t, _P],
+                         replaces="wiflow_tpu/ops/pallas/axial_attention.py:414")
 _GROUP_CHANNELS = 8
 _MAX_POSITIONS = 80
+_MAX_LENGTH = 32
 _WEIGHT_TILE_BYTES = 32 * 64 * 4
 
 
@@ -69,48 +88,66 @@ def pack_axial_attention(state_dict: Mapping[str, torch.Tensor],
     return axes[0], axes[1]
 
 
-def axial_attention_plain(x: torch.Tensor, aw: AxisWeights,
-                          width: bool) -> torch.Tensor:
-    """Stock-torch version of one kernel launch on ``[B, H, W, C]``."""
-    b, h, w, c = x.shape
-    g = aw.sim.shape[1]
-    xr = x.reshape(b * h, w, c) if width else \
-        x.transpose(1, 2).reshape(b * w, h, c)
-    n, length, _ = xr.shape
-    qkv = xr.float() @ aw.wq.float() + aw.bq
+def _core_plain(qkv: torch.Tensor, sim: torch.Tensor, oaff: torch.Tensor,
+                width: bool, dtype: torch.dtype) -> torch.Tensor:
+    """Logits, bn_similarity, softmax, weighted sum and bn_output in fp32
+    on ``qkv [B, H, W, 3C]`` along W or H; ``[B, H, W, C]`` in ``dtype``."""
+    b, h, w, c3 = qkv.shape
+    c, g = c3 // 3, sim.shape[1]
+    qr = qkv if width else qkv.transpose(1, 2)
+    n, length = (b * h, w) if width else (b * w, h)
     q, k, v = (t.reshape(n, length, g, c // g)
-               for t in torch.split(qkv, c, dim=-1))
+               for t in torch.split(qr.float(), c, dim=-1))
     lg = torch.einsum("nigc,njgc->ngij", q, k)
-    lg = lg * aw.sim[0][None, :, None, None] + aw.sim[1][None, :, None, None]
+    lg = lg * sim[0][None, :, None, None] + sim[1][None, :, None, None]
     p = torch.softmax(lg, dim=-1)
     o = torch.einsum("ngij,njgc->nigc", p, v).reshape(n, length, c)
-    out = (o * aw.oaff[0] + aw.oaff[1]).to(x.dtype)
+    out = (o * oaff[0] + oaff[1]).to(dtype)
     if width:
         return out.reshape(b, h, w, c)
     return out.reshape(b, w, h, c).transpose(1, 2).contiguous()
 
 
-def _launch(x: torch.Tensor, aw: AxisWeights, width: bool) -> torch.Tensor:
-    b, h, w, c = x.shape
-    dev, dt = x.device, x.dtype
-    g = aw.sim.shape[1]
-    check_tensor(x, "x", device=dev, dtype=dt)
-    check_tensor(aw.wq, "wq", device=dev, dtype=dt, shape=(c, 3 * c))
-    check_tensor(aw.bq, "bq", device=dev, dtype=torch.float32,
-                 shape=(3 * c,))
-    check_tensor(aw.sim, "sim", device=dev, dtype=torch.float32,
-                 shape=(2, g))
-    check_tensor(aw.oaff, "oaff", device=dev, dtype=torch.float32,
-                 shape=(2, c))
+def axial_attention_plain(x: torch.Tensor, aw: AxisWeights,
+                          width: bool) -> torch.Tensor:
+    """Stock-torch version of one kernel launch on ``[B, H, W, C]``."""
+    qkv = x.float() @ aw.wq.float() + aw.bq
+    return _core_plain(qkv, aw.sim, aw.oaff, width, x.dtype)
+
+
+def _check_affines(sim: torch.Tensor, oaff: torch.Tensor, c: int,
+                   dev: torch.device) -> int:
+    """Check one axis's bn_similarity and bn_output affines; its groups."""
+    g = sim.shape[1]
+    check_tensor(sim, "sim", device=dev, dtype=torch.float32, shape=(2, g))
+    check_tensor(oaff, "oaff", device=dev, dtype=torch.float32, shape=(2, c))
     if c != g * _GROUP_CHANNELS:
         raise ValueError(f"the kernel takes {_GROUP_CHANNELS} channels per "
                          f"group, got C={c}, G={g}")
+    return g
+
+
+def _check_axis(aw: AxisWeights, c: int, dev: torch.device,
+                dt: torch.dtype) -> int:
+    """Check one axis's folded weights for a kernel that projects; its
+    groups."""
+    check_tensor(aw.wq, "wq", device=dev, dtype=dt, shape=(c, 3 * c))
+    check_tensor(aw.bq, "bq", device=dev, dtype=torch.float32,
+                 shape=(3 * c,))
+    return _check_affines(aw.sim, aw.oaff, c, dev)
+
+
+def _launch(x: torch.Tensor, aw: AxisWeights, width: bool) -> torch.Tensor:
+    b, h, w, c = x.shape
+    dev, dt = x.device, x.dtype
+    check_tensor(x, "x", device=dev, dtype=dt)
+    g = _check_axis(aw, c, dev, dt)
     if width:      # sequences (b, h) along W
         length, n_inner, inner, seq = w, h, w * c, c
     else:          # sequences (b, w) along H, read as strided columns
         length, n_inner, inner, seq = h, w, c, w * c
-    if length > 32:
-        raise ValueError(f"sequence length {length} > 32")
+    if length > _MAX_LENGTH:
+        raise ValueError(f"sequence length {length} > {_MAX_LENGTH}")
     seqs = _MAX_POSITIONS // length
     npos = seqs * length
     smem = _WEIGHT_TILE_BYTES + npos * (3 * c + 4) * 4 + npos * c * \
@@ -144,3 +181,155 @@ def dual_axial_attention_eval(x: torch.Tensor,
     """Width-axis then height-axis attention on ``[B, H, W, C]``; two
     kernel launches on the card.  Output in standard channel order."""
     return axial_attention(axial_attention(x, axes[0], True), axes[1], False)
+
+
+# -- both axes in one launch (``attention_impl="dual"``) ---------------------
+
+def dual_axial_attention_fused_plain(x: torch.Tensor,
+                                     axes: Tuple[AxisWeights, AxisWeights]
+                                     ) -> torch.Tensor:
+    """Stock-torch version of the one-launch kernel: the width axis's
+    output is rounded to ``x.dtype`` between the axes, as the kernel rounds
+    its on-chip intermediate."""
+    return axial_attention_plain(axial_attention_plain(x, axes[0], True),
+                                 axes[1], False)
+
+
+def dual_smem_bytes(h: int, w: int, c: int,
+                    esize: int) -> Tuple[int, int, int]:
+    """(rows per pass, columns per pass, bytes of shared memory) of the
+    one-launch kernel for a ``[H, W, C]`` sample: the weight tile, fp32
+    qkv and the input rows of the positions staged at a time, and the
+    whole intermediate in the storage type."""
+    rows, cols = _MAX_POSITIONS // w, _MAX_POSITIONS // h
+    npos = max(rows * w, cols * h)
+    return rows, cols, (_WEIGHT_TILE_BYTES + npos * (3 * c + 4) * 4
+                        + (npos + h * w) * c * esize)
+
+
+def _launch_dual(x: torch.Tensor,
+                 axes: Tuple[AxisWeights, AxisWeights]) -> torch.Tensor:
+    b, h, w, c = x.shape
+    dev, dt = x.device, x.dtype
+    check_tensor(x, "x", device=dev, dtype=dt)
+    g = _check_axis(axes[0], c, dev, dt)
+    if _check_axis(axes[1], c, dev, dt) != g:
+        raise ValueError("the two axes have different group counts")
+    if max(h, w) > _MAX_LENGTH:
+        raise ValueError(f"sequence length {max(h, w)} > {_MAX_LENGTH}")
+    rows, cols, smem = dual_smem_bytes(h, w, c, x.element_size())
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"a [{h}, {w}, {c}] {dt} sample needs {smem} bytes of shared "
+            f"memory in one thread block ({h * w * c * x.element_size()} of "
+            f"them its intermediate), more than the {SMEM_LIMIT} a block "
+            f"may use; attention_impl='v2' has no such limit")
+    out = torch.empty_like(x)
+    ptrs = [t.data_ptr() for aw in axes
+            for t in (aw.wq, aw.bq, aw.sim, aw.oaff)]
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    KERNEL_DUAL.launch(dtype_code(dt), ptr(x), ptr(out), b, h, w, c, g, rows,
+                       cols, c_ptrs, ctypes.c_size_t(smem), stream_ptr(dev))
+    return out
+
+
+def dual_axial_attention_eval_fused(x: torch.Tensor,
+                                    axes: Tuple[AxisWeights, AxisWeights]
+                                    ) -> torch.Tensor:
+    """Width-axis then height-axis attention on ``[B, H, W, C]`` in one
+    kernel launch on the card; the intermediate between the axes stays in
+    shared memory.  A CUDA tensor goes through the kernel (or raises: a
+    sample that does not fit a thread block is refused, never split into
+    two launches); a CPU tensor through
+    :func:`dual_axial_attention_fused_plain`."""
+    if x.device.type == "cuda":
+        return _launch_dual(x, axes)
+    if x.device.type == "cpu":
+        return dual_axial_attention_fused_plain(x, axes)
+    raise ValueError(f"dual_axial_attention_eval_fused runs on cuda or cpu "
+                     f"tensors, not {x.device}")
+
+
+# -- v1: the projection outside the kernel (``attention_impl="v1"``) ---------
+
+def project_qkv_v1(x: torch.Tensor, aw: AxisWeights) -> torch.Tensor:
+    """``x [..., C] @ Wq + bq`` with fp32 accumulation, rounded once to
+    ``x.dtype``: the v1 path's projection, a stock matrix product as in the
+    JAX package.  The bias enters in ``x.dtype``."""
+    c = x.shape[-1]
+    qkv = torch.addmm(aw.bq.to(x.dtype), x.reshape(-1, c), aw.wq)
+    return qkv.reshape(*x.shape[:-1], 3 * c)
+
+
+def _as_4d(qkv: torch.Tensor) -> torch.Tensor:
+    if qkv.ndim == 3:              # [N, L, 3C]: N sequences along the width
+        return qkv[None]
+    if qkv.ndim == 4:
+        return qkv
+    raise ValueError(f"qkv is [N, L, 3C] or [B, H, W, 3C], got "
+                     f"{tuple(qkv.shape)}")
+
+
+def axial_attention_v1_plain(qkv: torch.Tensor, sim: torch.Tensor,
+                             oaff: torch.Tensor,
+                             width: bool = True) -> torch.Tensor:
+    """Stock-torch version of the v1 kernel on a precomputed ``qkv``."""
+    out = _core_plain(_as_4d(qkv), sim, oaff, width, qkv.dtype)
+    return out[0] if qkv.ndim == 3 else out
+
+
+def _launch_v1(qkv: torch.Tensor, sim: torch.Tensor, oaff: torch.Tensor,
+               width: bool) -> torch.Tensor:
+    b, h, w, c3 = qkv.shape
+    c = c3 // 3
+    dev, dt = qkv.device, qkv.dtype
+    check_tensor(qkv, "qkv", device=dev, dtype=dt, shape=(b, h, w, 3 * c))
+    g = _check_affines(sim, oaff, c, dev)
+    # strides in positions: the kernel scales them by 3C (qkv) and C (out)
+    if width:      # sequences (b, h) along W
+        length, n_inner, inner, seq = w, h, w, 1
+    else:          # sequences (b, w) along H, read as strided columns
+        length, n_inner, inner, seq = h, w, 1, w
+    if length > _MAX_LENGTH:
+        raise ValueError(f"sequence length {length} > {_MAX_LENGTH}")
+    seqs = _MAX_POSITIONS // length
+    smem = seqs * length * (3 * c + 4) * 4
+    out = torch.empty((b, h, w, c), dtype=dt, device=dev)
+    KERNEL_V1.launch(dtype_code(dt), ptr(qkv), ptr(out), b * n_inner, length,
+                     c, g, n_inner, inner, h * w, seq, seqs, ptr(sim),
+                     ptr(oaff), ctypes.c_size_t(smem), stream_ptr(dev))
+    return out
+
+
+def axial_attention_v1(qkv: torch.Tensor, sim: torch.Tensor,
+                       oaff: torch.Tensor, width: bool = True) -> torch.Tensor:
+    """The v1 attention core on a precomputed projection: ``qkv
+    [N, L, 3C]`` -> ``[N, L, C]``, or ``[B, H, W, 3C]`` -> ``[B, H, W, C]``
+    along W (``width=True``) or H, in ``qkv.dtype``.
+
+    A CUDA tensor goes through the kernel (or raises); a CPU tensor
+    through :func:`axial_attention_v1_plain`.
+    """
+    if qkv.device.type == "cuda":
+        out = _launch_v1(_as_4d(qkv), sim, oaff, width)
+        return out[0] if qkv.ndim == 3 else out
+    if qkv.device.type == "cpu":
+        return axial_attention_v1_plain(qkv, sim, oaff, width)
+    raise ValueError(f"axial_attention_v1 runs on cuda or cpu tensors, not "
+                     f"{qkv.device}")
+
+
+def dual_axial_attention_eval_v1(x: torch.Tensor,
+                                 axes: Tuple[AxisWeights, AxisWeights]
+                                 ) -> torch.Tensor:
+    """Width-axis then height-axis v1 attention on ``[B, H, W, C]``: per
+    axis one stock matrix product and one kernel launch.  The height axis
+    is projected on the ``[B, H, W, C]`` tensor as it lies and the kernel
+    reads and writes its columns through a sequence stride, so neither
+    axis transposes anything in device memory."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"dual_axial_attention_eval_v1 runs on cuda or cpu "
+                         f"tensors, not {x.device}")
+    for aw, width in zip(axes, (True, False)):
+        x = axial_attention_v1(project_qkv_v1(x, aw), aw.sim, aw.oaff, width)
+    return x
