@@ -44,10 +44,13 @@ Phases (any failure exits nonzero; nothing is caught):
 8. the ``stage`` and ``join`` kernels, forward and backward, against their
    plain versions at the fused train step's shapes for batch 256 (every
    conv geometry, with prologue, mask and bias as the model uses them) and
-   at 7 samples, which leave the last thread block part-filled: fp32 with
-   TF32 off, the sums and the prologue's gradients also against float64,
-   and bf16 against the fp32 plain version; a second launch of each must
-   repeat the first bit for bit;
+   at 7 samples, which leave the last thread block part-filled, and
+   ``stage`` also at the MM-Fi model's geometries (T = 10, 19/17/16
+   channels a group, conv rows of 272 to 17 positions) and on rows of 2,500
+   positions, which the launch plan cuts in strips: fp32 with TF32 off,
+   the sums and the prologue's gradients also against float64, and bf16
+   against the fp32 plain version; a second launch of each must repeat the
+   first bit for bit;
 9. the fused training slice: the default ``ModelConfig`` with
    ``tcn_train_impl = conv_train_impl = "fused"``, trained as in phase 6
    (one step must launch ``stage`` 39 times and ``join`` 9 times, forward
@@ -57,10 +60,13 @@ Phases (any failure exits nonzero; nothing is caught):
    (measured as stock ops on the card against stock ops on the CPU); one
    ``train_pose_model`` epoch;
 10. timings: ``stage`` and ``join`` over the launches of one step and per
-   geometry, against their plain versions, their bounds and, where a stage
-   is a bare convolution, ``F.conv1d`` / ``F.conv2d``; the fused step
-   against the stock-op step in alternating turns, and the profiler's
-   breakdown of the fused step;
+   geometry (with the path the launch plan chose), against their plain
+   versions, their bounds and, where a stage is a bare convolution,
+   ``F.conv1d`` / ``F.conv2d``; beside the CUDA-event time of each loop the
+   host's time to enqueue it and the device's busy time in it by kernel
+   (``torch.profiler``), which say whether the host or the card paces it;
+   the fused step against the stock-op step in alternating turns, and the
+   profiler's breakdown of the fused step;
 11. the other two lowerings of the serving attention: the v1 kernel (on a
    precomputed QKV projection, rounded to the storage type) and the
    one-launch dual kernel against their plain versions at
@@ -146,6 +152,8 @@ STAGE_ATTRS = {"stage_fwd": "STAGE_FORWARD", "stage_bwd": "STAGE_BACKWARD",
 STAGE_LAUNCHES = {"stage_fwd": 39, "stage_bwd": 39, "join_fwd": 9,
                   "join_bwd": 9}
 FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
+# Samples of the MM-Fi geometries that phase 8 holds (correctness only).
+MMFI_STAGE_BATCH = 33
 
 
 def log(*a):
@@ -569,9 +577,9 @@ def train_slice(dev, all_kernels):
 # kernel's name (first match wins).
 KERNEL_CLASSES = (
     ("the port's stage and join kernels", (
-        "stage_forward_kernel", "stage_dgrad_kernel", "stage_wgrad_kernel",
-        "join_forward_kernel", "join_backward_kernel", "reduce_rows",
-        "reduce_affine_grads")),
+        "stage_conv_kernel", "stage_stream_kernel", "stage_direct_kernel",
+        "stage_wgrad_kernel", "join_forward_kernel", "join_backward_kernel",
+        "reduce_rows", "reduce_affine_grads")),
     ("the port's train kernels", ("core_forward_kernel",
                                   "core_backward_kernel",
                                   "sums_forward_kernel",
@@ -632,6 +640,39 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20) -> None:
     log("  largest kernels by self device time:")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {key[:90]}")
+
+
+def device_ms(fn, runs: int = 10, by_kernel=None) -> float:
+    """The device's busy time in one ``fn()``: the sum of its kernels'
+    durations (``torch.profiler``).  Unlike a CUDA-event timing it does not
+    count the gaps that a slow host leaves between launches.  The profiler
+    loses some of the first events of a short window, so a kernel counts
+    with its mean duration times its launches per call, rounded from what
+    was seen over ``runs`` calls.  ``by_kernel``, a dict, gets ``(ms,
+    launches)`` per call by kernel name."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for e in prof.key_averages():
+        if (e.device_type == DeviceType.CPU
+                or getattr(e, "is_user_annotation", False)):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        us = getattr(e, "self_cuda_time_total", 0) if us is None else us
+        if us <= 0 or e.count < 1:
+            continue
+        launches = max(1, round(e.count / runs))
+        ms = us / e.count * launches / 1e3
+        total += ms
+        if by_kernel is not None:
+            by_kernel[e.key] = (ms, launches)
+    return total
 
 
 def train_timings(state, xb, yb, main16, c, g, launches, errs):
@@ -753,50 +794,6 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
     return record
 
 
-def step_launches(cfg, batch):
-    """The ``stage`` and ``join`` launches of one fused train step of
-    ``cfg`` at ``batch``, in the model's order, as dicts: a stage's
-    geometry, the leading shape and channels of its input, and whether it
-    has a prologue, a mask (one bit per element or per (sample, channel)),
-    a bias, and an input that needs a gradient."""
-    t, g = cfg.window_size, cfg.tcn_groups
-    stages, joins = [], []
-
-    def stage(kind, lead, ci, co, groups=1, dil=1, pro=False, mask=None,
-              bias=False, need_gx=True):
-        stages.append(dict(kind=kind, lead=lead, ci=ci, co=co, groups=groups,
-                           dil=dil, pro=pro, mask=mask, bias=bias,
-                           need_gx=need_gx))
-
-    cin = cfg.num_subcarriers
-    for i, cout in enumerate(cfg.tcn_channels):
-        lead, first = (batch, t), i == 0
-        if cin != cout:
-            stage("identity", lead, cin, cout, need_gx=not first)
-        stage("causal3", lead, cin, cin, g, 2 ** i, need_gx=not first)
-        stage("identity", lead, cin, cout, pro=True)
-        stage("causal3", lead, cout, cout, g, 2 ** i, pro=True, mask="element")
-        stage("identity", lead, cout, cout, pro=True)
-        joins.append(dict(lead=lead, c=cout, mask="element",
-                          res_norm=cin != cout, act_h=True))
-        cin = cout
-    w, ci = cfg.tcn_channels[-1], 1
-    for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
-        strided = k > 0
-        wout = (w - 1) // 2 + 1 if strided else w
-        stage("chunk1" if strided else "identity", (batch, t, w), ci, co,
-              need_gx=strided)
-        stage("chunk3" if strided else "sym3", (batch, t, w), ci, co,
-              bias=True, need_gx=strided)
-        for _ in range(2):
-            stage("sym3", (batch, t, wout), co, co, pro=True, mask="sample",
-                  bias=True)
-        joins.append(dict(lead=(batch, t, wout), c=co, mask=None,
-                          res_norm=True, act_h=False))
-        ci, w = co, wout
-    return stages, joins
-
-
 def case_label(c):
     if "kind" not in c:
         parts = [f"join {list(c['lead'])} x {c['c']}"]
@@ -909,10 +906,11 @@ def check_stage_kernels(dev, cfg):
     backward."""
     from wiflow_tpu_torch.ops.kernels import stage_fused as sk
     log(f"phase 8: stage and join kernels vs plain versions, batch "
-        f"{TRAIN_BATCH} shapes and 7 samples")
+        f"{TRAIN_BATCH} shapes, 7 samples and the MM-Fi geometries at "
+        f"{MMFI_STAGE_BATCH} samples")
     keep = 1.0 - cfg.dropout
-    stages, joins = step_launches(cfg, TRAIN_BATCH)
-    small_s, small_j = step_launches(cfg, 7)
+    stages, joins = sk.step_launches(cfg, TRAIN_BATCH)
+    small_s, small_j = sk.step_launches(cfg, 7)
 
     def pick(cases, **want):
         return next(c for c in cases
@@ -936,6 +934,14 @@ def check_stage_kernels(dev, cfg):
         pick(small_s, kind="sym3", ci=64, co=64),
         pick(small_s, kind="chunk3", ci=32, co=64),
         pick(small_s, kind="chunk1", ci=32, co=64),
+        # the MM-Fi model's geometries (T = 10; 19, 17 and 16 channels a
+        # group of 18; conv rows of 272 to 17 positions)
+        *sk.mmfi_stage_cases(MMFI_STAGE_BATCH),
+        # rows too long for one tile: cut in strips that share a halo
+        dict(kind="sym3", lead=(3, 2, 2500), ci=8, co=8, groups=1, dil=1,
+             pro=True, mask="sample", bias=True, need_gx=True),
+        dict(kind="chunk3", lead=(3, 2, 2500), ci=8, co=16, groups=1, dil=1,
+             pro=False, mask=None, bias=True, need_gx=True),
     ]
     join_cases = [
         pick(joins, c=540), pick(joins, c=440),
@@ -1106,15 +1112,30 @@ def join_work(c, esize):
 def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
     """Phase 10: ``stage`` and ``join`` over the launches of one step and
     per geometry, then the fused step against the stock-op step."""
+    record = stage_kernel_timings(dev, cfg, launches, errs)
+    fused_step_timings(stock_state, fused_state, xb, yb, record)
+    return record
+
+
+def stage_kernel_timings(dev, cfg, launches, errs):
+    """The kernel half of phase 10.  Returns the record rows of ``stage``
+    and ``join``, forward and backward."""
     import torch.nn.functional as F
     from wiflow_tpu_torch.ops.kernels import stage_fused as sk
-    from wiflow_tpu_torch.train.steps import train_step
     log(f"phase 10: stage and join timings, bf16, batch {TRAIN_BATCH} (CUDA "
         f"events, median of {RUNS})")
     keep = 1.0 - cfg.dropout
     dt = torch.bfloat16
-    stages, joins = step_launches(cfg, TRAIN_BATCH)
+    stages, joins = sk.step_launches(cfg, TRAIN_BATCH)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
+
+    def paths(c):
+        """The plan's path of the forward, the input gradient (none when
+        the input needs no gradient) and the weight gradient."""
+        plan = sk.stage_plan(sk.stage_geometry(
+            c["kind"], c["lead"], c["ci"], c["co"], c["groups"], c["dil"]), dt)
+        return (plan.fwd.path, plan.dgrad.path if c["need_gx"] else "none",
+                plan.wgrad.path)
 
     def stage_fns(c):
         i = stage_inputs(c, gen, dev, keep)
@@ -1186,8 +1207,11 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
     plain_runs = max(3, RUNS // 4)
 
     # per geometry: each distinct launch of the step, once
-    log("  per launch: kernel / plain / bound ms, forward then backward; "
-        "F.conv where the stage is a bare convolution")
+    log("  per launch: kernel / plain / bound ms, forward then backward "
+        "(CUDA events: a launch of a few microseconds reads as the host's "
+        "time to enqueue it); F.conv where the stage is a bare convolution; "
+        "the device's busy time in the kernels (torch.profiler); the plan's "
+        "path of the forward, the input gradient and the weight gradient")
     seen = set()
     for c, f, (wf, wb) in list(zip(stages, sfn, swork)) + list(
             zip(joins, jfn, jwork)):
@@ -1199,10 +1223,13 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
         bb, byb = bound_ms(*wb, dt)
         lib = ("" if f["lib"] is None
                else f", F.conv {time_ms(f['lib'], RUNS):.4f}")
+        path = (" [" + " / ".join(paths(c)) + "]") if "kind" in c else ""
         log(f"    {label}: fwd {time_ms(f['fwd'], RUNS):.4f} / "
             f"{time_ms(f['plain_fwd'], plain_runs):.4f} / {bf:.4f} ({byf})"
             f"{lib}; bwd {time_ms(f['bwd'], RUNS):.4f} / "
-            f"{time_ms(f['plain_bwd'], plain_runs):.4f} / {bb:.4f} ({byb})")
+            f"{time_ms(f['plain_bwd'], plain_runs):.4f} / {bb:.4f} ({byb})"
+            f"; device busy fwd {device_ms(f['fwd']):.4f}, bwd "
+            f"{device_ms(f['bwd']):.4f}{path}")
 
     # summed over the launches of one train step
     record = []
@@ -1210,7 +1237,12 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
                                  ("stage_bwd", sfn, swork, "bwd"),
                                  ("join_fwd", jfn, jwork, "fwd"),
                                  ("join_bwd", jfn, jwork, "bwd")):
-        ms = time_ms(lambda: [f[key]() for f in fns], RUNS)
+        # the host's time to enqueue the loop beside the device's time to
+        # run it: which of the two paces the launches
+        ms, enqueue_ms = time_step_ms(lambda: [f[key]() for f in fns], RUNS)
+        by_kernel = {}
+        busy_ms = device_ms(lambda: [f[key]() for f in fns],
+                            by_kernel=by_kernel)
         plain_ms = time_ms(lambda: [f["plain_" + key]() for f in fns],
                            plain_runs)
         which = 0 if key == "fwd" else 1
@@ -1223,8 +1255,17 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
         row = {"name": name, "route": "cuda", "source": kern.source,
                "replaces": kern.replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-               "bound_ms": bms, "bound_by": by, "library_ms": None}
+               "bound_ms": bms, "bound_by": by, "library_ms": None,
+               "enqueue_ms": enqueue_ms, "device_busy_ms": busy_ms}
         lib = ""
+        if name.startswith("stage"):
+            counts = {}
+            for c in stages:
+                fwd_path, *bwd_paths = paths(c)
+                for pth in (fwd_path,) if key == "fwd" else bwd_paths:
+                    counts[pth] = counts.get(pth, 0) + 1
+            row["paths"] = counts
+            lib = f"; paths {json.dumps(counts)}"
         if name == "stage_fwd":
             bare = [f for f in fns if f["lib"] is not None]
             row["library_ms"] = time_ms(lambda: [f["lib"]() for f in bare],
@@ -1232,18 +1273,36 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
             row["library_launches"] = len(bare)
             row["ms_of_library_launches"] = time_ms(
                 lambda: [f["fwd"]() for f in bare], RUNS)
-            lib = (f"; the {len(bare)} launches that are bare convolutions: "
-                   f"kernel {row['ms_of_library_launches']:.4f} ms, F.conv "
-                   f"{row['library_ms']:.4f} ms")
+            row["library_device_busy_ms"] = device_ms(
+                lambda: [f["lib"]() for f in bare])
+            row["device_busy_ms_of_library_launches"] = device_ms(
+                lambda: [f["fwd"]() for f in bare])
+            lib += (f"; the {len(bare)} launches that are bare convolutions: "
+                    f"kernel {row['ms_of_library_launches']:.4f} ms (device "
+                    f"busy {row['device_busy_ms_of_library_launches']:.4f}), "
+                    f"F.conv {row['library_ms']:.4f} ms (device busy "
+                    f"{row['library_device_busy_ms']:.4f})")
         log(f"  {name}, the {len(fns)} launches of one step: kernel "
-            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"{ms:.4f} ms (the host enqueues the loop in {enqueue_ms:.4f} "
+            f"ms; the device is busy {busy_ms:.4f} ms of it), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
             f"(mostly {by}; {sum(w[which][0] for w in work) / 1e9:.3f} "
             f"GFLOP, {sum(w[which][1] for w in work) / 1e9:.4f} GB){lib}")
+        for kname, (kms, count) in sorted(by_kernel.items(),
+                                          key=lambda r: -r[1][0]):
+            short = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "",
+                           kname).split("(")[0]
+            log(f"    {kms:8.4f} ms x{count:g} {short[:80]}")
         record.append(row)
     del sfn, jfn
     torch.cuda.empty_cache()
+    return record
 
-    # the fused step against the stock-op step, in turns as in phase 7
+
+def fused_step_timings(stock_state, fused_state, xb, yb, record):
+    """The step half of phase 10: the fused step against the stock-op
+    step, in turns as in phase 7."""
+    from wiflow_tpu_torch.train.steps import train_step
+
     def fused_step():
         train_step(fused_state, xb, yb)
 
@@ -1280,7 +1339,17 @@ def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
         log(f"  {name} per turn, step / enqueue ms: "
             + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
     profile_step(fused_step, fused_ms)
-    return record
+
+
+def stage_phases():
+    """Phase 8 and the kernel half of phase 10 alone: what a change to the
+    ``stage`` or ``join`` kernels needs before the whole script is worth
+    its time.  ``python3 -c "import chip_smoke as c; c.stage_phases()"``."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    build_kernels(("stage_fused", "join_fused"))
+    dev, cfg = torch.device("cuda"), ModelConfig()
+    errs = check_stage_kernels(dev, cfg)
+    return stage_kernel_timings(dev, cfg, dict.fromkeys(STAGE_ATTRS, 0), errs)
 
 
 def reset_launches(all_kernels):
@@ -1692,9 +1761,10 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
     return record, mmfi_times
 
 
-def build_kernels():
+def build_kernels(only=None):
     """Phase 1.  Returns nvidia-smi's line for the card, the three kernels
-    of the default serving path and every kernel of the port, by name."""
+    of the default serving path and every kernel of the port, by name.
+    ``only`` names the libraries to build and load, all of them if None."""
     from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as train_k
     from wiflow_tpu_torch.ops.kernels import build as kbuild
@@ -1715,7 +1785,8 @@ def build_kernels():
                    "axial_attention_dual": attn_k.KERNEL_DUAL,
                    **{n: getattr(train_k, a) for n, a in KERNEL_ATTRS.items()},
                    **{n: getattr(stage_k, a) for n, a in STAGE_ATTRS.items()}}
-    libraries = sorted({k.name for k in all_kernels.values()})
+    libraries = sorted({k.name for k in all_kernels.values()
+                        if only is None or k.name in only})
     t0 = time.perf_counter()
     secs = kbuild.build(libraries)
     log(f"kernel build, {len(libraries)} libraries: "
@@ -1726,7 +1797,8 @@ def build_kernels():
         for fn, line in ptxas_report(path.read_text()):
             log(f"  ptxas {lib} {fn}: {line}")
     for k in all_kernels.values():
-        k.load()
+        if k.name in libraries:
+            k.load()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

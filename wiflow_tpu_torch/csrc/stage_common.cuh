@@ -62,24 +62,6 @@ struct Mask {
   }
 };
 
-// 256 threads as (kThreads / TX) x TX, each with a 4 x 4 block of a
-// TM x TN tile: acc += As[k][4 ty ..] (x) Bs[k][4 tx ..] for k in [k0, k1).
-template <int TM, int TN>
-__device__ __forceinline__ void tile_fma(float (&acc)[4][4], const float* as,
-                                         const float* bs, int ty, int tx,
-                                         int k0, int k1) {
-  for (int k = k0; k < k1; ++k) {
-    const float4 a4 = *reinterpret_cast<const float4*>(&as[k * TM + 4 * ty]);
-    const float4 b4 = *reinterpret_cast<const float4*>(&bs[k * TN + 4 * tx]);
-    const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-    const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] += av[i] * bv[j];
-  }
-}
-
 constexpr int kReduceCols = 32;
 constexpr int kReduceLanes = kThreads / kReduceCols;
 

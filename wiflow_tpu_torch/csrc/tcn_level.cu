@@ -30,10 +30,15 @@
 // the block, so each weight it loads feeds every sample.  One launch per
 // level.
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace {
 
 using wf::kThreads;
+using wf::ldmatrix_x2;
+using wf::ldmatrix_x4;
+using wf::mma_bf16;
+using wf::pack2;
 using bf16 = __nv_bfloat16;
 constexpr int kMaxSamples = 4;
 constexpr int kMmaTileK = 128;
@@ -60,38 +65,6 @@ struct TcnArgs {
   const T* dw;          // [cin, cout] or nullptr when cin == cout
   const float* db;      // [cout] or nullptr
 };
-
-__device__ __forceinline__ uint32_t pack2(bf16 lo, bf16 hi) {
-  __nv_bfloat162 v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// Four 8x8 bf16 matrices from shared memory, one row address per lane.
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t (&r)[2], const bf16* p) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r[0]), "=r"(r[1])
-               : "r"(addr));
-}
 
 // acc[5][4] += A[buf_rows, K] (shared) x W[K, n0:n0+64] (device memory).
 // Product<T>::coord maps an accumulator slot to its (row, column - n0).
