@@ -9,12 +9,18 @@ Phases (any failure exits nonzero; nothing is caught):
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
    and the build of the nine CUDA libraries from ``wiflow_tpu_torch/csrc``
    (one nvcc each, started together), with ptxas's registers and spills
-   under each kernel's name;
+   under each kernel's name, and the tensor-core instructions (``HMMA``,
+   ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
+   ``conv_stack``, ``tcn_level`` and ``stage_fused``;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
    conv rows), which leave thread blocks part-filled: fp32 with TF32 off,
-   and bf16 against the fp32 plain version;
+   and bf16 against the fp32 plain version; then the TCN level and conv
+   stack kernels again on N(0, 1) inputs through random weights scaled by
+   their fan-in with nonzero biases (the seeded model serves nearly one
+   output for every row), each reference checked to vary over rows, and a
+   second launch of each held to the first bit for bit;
 3. the slice end to end: the default ``ModelConfig`` (bf16) with seeded
    weights, ``fast_forward`` at batch 4096 (and at batch 7, which leaves
    thread blocks part-filled) against the port's plain-torch module, and
@@ -22,7 +28,9 @@ Phases (any failure exits nonzero; nothing is caught):
    counter is reset before and read after the batch-4096 run and the
    stream;
 4. timings from CUDA events (warm-up, then the median of several runs):
-   each kernel, its plain version, the decoder and ``fast_forward``;
+   each kernel, its plain version, the decoder and ``fast_forward``, and
+   the TCN levels' pointwise products alone through ``torch.matmul``
+   (cuBLAS), a yardstick of the tensor-core rate;
 5. the four train kernels (``axial_core`` and ``logits_sums``, forward and
    backward) against their plain versions at the train step's shapes for
    batch 256 (width axis n=3840, L=20; height axis n=5120, L=15) and at 7
@@ -79,7 +87,8 @@ Phases (any failure exits nonzero; nothing is caught):
    weights at batch 4096; the three serving kernels against their plain
    versions at its shapes (TCN ``[4096, 10, 342]`` -> 342 -> 306 -> 288 with
    18 groups, conv stack ``[40960, 272]``, attention ``[4096, 17, 10, 64]``)
-   and at part-filled blocks; ``fast_forward_mmfi`` (3 + 1 + 2 launches)
+   and at part-filled blocks, and the random-weight checks of phase 2 at
+   its widths; ``fast_forward_mmfi`` (3 + 1 + 2 launches)
    against the plain-torch ``WiFlowMMFiModel`` at batch 4096 and 7; the
    MM-Fi metrics of the served batch on the card against the same on the
    CPU;
@@ -154,6 +163,13 @@ STAGE_LAUNCHES = {"stage_fwd": 39, "stage_bwd": 39, "join_fwd": 9,
 FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 # Samples of the MM-Fi geometries that phase 8 holds (correctness only).
 MMFI_STAGE_BATCH = 33
+# Libraries whose tensor-core instructions phase 1 counts in the SASS.
+SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused")
+SASS_OPS = ("HMMA", "HGMMA")
+# The random-weight checks of the redesigned serving kernels: the spread of
+# the reference over rows must be at least this share of its largest value
+# (seeded model weights give nearly one output for every row).
+MIN_SPREAD = 1e-2
 
 
 def log(*a):
@@ -249,7 +265,7 @@ def tcn_work(cfg, batch, esize):
 def conv_work(cfg, rows, esize):
     """(FLOPs, bytes) of the conv-stack launch; its rows are the TCN's
     output features or, for MM-Fi, the projection's."""
-    w, ci = getattr(cfg, "tcn_proj_channels", cfg.tcn_channels[-1]), 1
+    w, ci = conv_width(cfg), 1
     macs = weights = 0
     w_in = w
     for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
@@ -302,6 +318,36 @@ def ptxas_report(log_text: str):
         if len(out) == len(names):
             readable = dict(zip(names, out))
     return [(readable[n], line) for n, line in rows]
+
+
+def sass_counts(library):
+    """(kernel, {opcode: count}) of the tensor-core instructions (``HMMA``
+    from mma.sync, ``HGMMA`` from wgmma) in each kernel of a built library,
+    from ``cuobjdump -sass``."""
+    from torch.utils.cpp_extension import CUDA_HOME
+    tool = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                     "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(library)], capture_output=True,
+                          text=True, check=True).stdout
+    rows, name, counts = [], None, {}
+    for line in text.splitlines() + ["Function : <end>"]:
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            if name is not None:
+                rows.append((name, counts))
+            name, counts = m.group(1), {op: 0 for op in SASS_OPS}
+            continue
+        m = re.search(r"\b(HGMMA|HMMA)\.", line)
+        if m and name is not None:
+            counts[m.group(1)] += 1
+    names = [n for n, _ in rows]
+    tool = shutil.which("cu++filt") or shutil.which("c++filt")
+    if tool and names:
+        out = subprocess.run([tool], input="\n".join(names), text=True,
+                             capture_output=True).stdout.splitlines()
+        if len(out) == len(names):
+            rows = [(o, c) for o, (_, c) in zip(out, rows)]
+    return rows
 
 
 def compare_leaves(what, got, ref, tol, floor_frac):
@@ -1430,9 +1476,117 @@ def check_serving_kernels(tag, tcn_in, packed32, packed16, mid=None):
     return errs, (tcn_in, rows, a_in)
 
 
+def random_serving_weights(cfg, gen, dev):
+    """fp32 TCN levels and conv blocks at ``cfg``'s widths, as if BN-folded
+    from a trained model, each bias N(0, 0.5^2).  TCN weights are N(0,
+    1/fan-in); the conv stack's N(0, 2/fan-in), because its 15 stacked
+    convs shrink the signal at 1/fan-in until the output hardly varies over
+    rows (1.1e-2 x max|ref| at 20,000 rows, against 4.6e-2 at 2/fan-in)."""
+    from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
+
+    def w(*shape, fan, gain=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * math.sqrt(
+            gain / fan)
+
+    def b(n):
+        return 0.5 * torch.randn((n,), generator=gen, device=dev)
+
+    g = cfg.tcn_groups
+    levels, cin = [], getattr(cfg, "input_channels", cfg.num_subcarriers)
+    for i, cout in enumerate(cfg.tcn_channels):
+        gi, go = cin // g, cout // g
+        ds = cin != cout
+        levels.append(tcn_k.TcnLevelWeights(
+            w(3, g, gi, gi, fan=3 * gi), b(cin), w(cin, cout, fan=cin),
+            b(cout), w(3, g, go, go, fan=3 * go), b(cout),
+            w(cout, cout, fan=cout), b(cout),
+            w(cin, cout, fan=cin) if ds else None, b(cout) if ds else None,
+            2 ** i))
+        cin = cout
+    blocks, ci = [], 1
+    for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
+        blocks.append(conv_k.ConvBlockWeights(
+            w(3, ci, co, fan=3 * ci, gain=2), b(co),
+            w(3, co, co, fan=3 * co, gain=2), b(co),
+            w(3, co, co, fan=3 * co, gain=2), b(co),
+            w(ci, co, fan=ci, gain=2), b(co), stride=1 if k == 0 else 2))
+        ci = co
+    return levels, blocks
+
+
+def check_spread(name, ref):
+    """The reference must vary over rows: its std over rows, averaged over
+    the outputs, at least MIN_SPREAD of max|ref|."""
+    flat = ref.float().reshape(ref.shape[0], -1)
+    spread = flat.std(dim=0).mean().item()
+    scale = flat.abs().max().item()
+    log(f"  {name}: reference std over rows {spread:.4e} = "
+        f"{spread / scale:.4e} x max|ref| (must be >= {MIN_SPREAD:g})")
+    if not spread >= MIN_SPREAD * scale:
+        raise AssertionError(f"{name}: the reference hardly varies over rows "
+                             f"({spread} against max|ref| {scale})")
+
+
+def check_random_serving_kernels(tag, cfg, dev, batch):
+    """The TCN level and conv stack kernels on N(0, 1) inputs through
+    ``random_serving_weights``: fp32 (TF32 off) and bf16 against the fp32
+    plain version at ``batch`` samples and at 7, each reference checked
+    for spread, and a second launch of each held to the first bit for
+    bit."""
+    from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
+    bf = torch.bfloat16
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    levels, blocks = random_serving_weights(cfg, gen, dev)
+    t = cfg.window_size
+
+    def cast(weights, dt):
+        return [v.to(dt) if isinstance(v, torch.Tensor) and v.ndim > 1
+                else v for v in weights]
+
+    cases = []
+    for i, lv in enumerate(levels):
+        x = torch.randn((batch, t, lv.p1w.shape[0]), generator=gen,
+                        device=dev)
+        packed = {dt: tcn_k.level_weights(tcn_k.TcnLevelWeights(
+            *cast(lv[:-1], dt))) for dt in (torch.float32, bf)}
+        cases.append((f"{tag}random tcn level {i}", x, tcn_k.tcn_level,
+                      tcn_k.tcn_level_plain, packed))
+    rows = torch.randn((batch * t, conv_width(cfg)), generator=gen,
+                       device=dev)
+    packed = {dt: conv_k.stack_weights(
+        [conv_k.ConvBlockWeights(*cast(blk, dt)) for blk in blocks])
+        for dt in (torch.float32, bf)}
+    cases.append((f"{tag}random conv stack", rows,
+                  conv_k.fused_conv_stack_eval, conv_k.conv_stack_plain,
+                  packed))
+    for name, x, kernel, plain, packed in cases:
+        ref = plain(x, packed[torch.float32])
+        check_spread(name, ref)
+        n7 = 7 * (t if x.ndim == 2 else 1)
+        for dt, tol in ((torch.float32, TOL_F32), (bf, TOL_BF16)):
+            label = "fp32" if dt == torch.float32 else "bf16"
+            xd = x.to(dt)
+            got = kernel(xd, packed[dt])
+            compare(f"{name} {label}", got, ref, tol)
+            same_bits(f"{name} {label}", [got], [kernel(xd, packed[dt])])
+            compare(f"{name} {label}, 7 samples",
+                    kernel(xd[:n7].contiguous(), packed[dt]), ref[:n7], tol)
+        del ref, got
+    torch.cuda.synchronize()
+
+
+def conv_width(cfg):
+    """The conv stack's input width: the TCN's last width or, for MM-Fi,
+    the projection's."""
+    return getattr(cfg, "tcn_proj_channels", cfg.tcn_channels[-1])
+
+
 def time_serving_kernels(tag, cfg, inputs, packed16):
     """``{kernel: (ms, plain ms, bound ms, bound by)}`` of the three serving
-    kernels in bf16 at the shapes of ``inputs``."""
+    kernels in bf16 at the shapes of ``inputs``, and the cuBLAS time of the
+    TCN levels' pointwise products alone."""
     from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
     from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
     from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
@@ -1468,7 +1622,25 @@ def time_serving_kernels(tag, cfg, inputs, packed16):
             f"{nbytes / 1e9:.4f} GB), fp32 CUDA-core bound "
             f"{flops / PEAK_FLOPS[torch.float32] * 1e3:.4f} ms")
         out[name] = (ms, plain_ms, bms, by)
-    return out
+    # A yardstick of the tensor-core rate the TCN kernel reaches, not a
+    # library time of its function: torch.matmul (cuBLAS) on the levels'
+    # pointwise products and shortcuts alone, [B T, C_in] x [C_in, C_out].
+    gen = torch.Generator(device=tin16.device).manual_seed(SEED + 31)
+    mats = []
+    for lv in packed16.tcn:
+        cin, cout = lv.p1w.shape
+        for k, wt in ((cin, lv.p1w), (cout, lv.p2w), (cin, lv.dw)):
+            if wt is not None:
+                mats.append((torch.randn((tin16.shape[0] * tin16.shape[1], k),
+                                         generator=gen, device=tin16.device
+                                         ).to(torch.bfloat16), wt))
+    cublas_ms = time_ms(lambda: [torch.matmul(a, w) for a, w in mats], RUNS)
+    flops = sum(2 * a.shape[0] * w.shape[0] * w.shape[1] for a, w in mats)
+    log(f"  {tag}tcn_level's pointwise products alone through torch.matmul "
+        f"(cuBLAS, {len(mats)} products, {flops / 1e9:.2f} GFLOP): "
+        f"{cublas_ms:.4f} ms = {flops / cublas_ms / 1e9:.1f} TFLOP/s")
+    del mats
+    return out, cublas_ms
 
 
 def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
@@ -1588,6 +1760,7 @@ def mmfi_slice(dev, all_kernels):
     errs, inputs = check_serving_kernels(
         "MM-Fi ", tcn_in, packed32, packed16,
         mid=lambda y: F.silu(F.linear(y, wproj, bproj)))
+    check_random_serving_kernels("MM-Fi ", cfg16, dev, BATCH)
 
     reset_launches(all_kernels)
     out16 = fast_forward_mmfi(packed16, x)
@@ -1745,8 +1918,8 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
     # MM-Fi serving
     m = mmfi
     mb = m["x"].shape[0]
-    mmfi_times = time_serving_kernels("MM-Fi ", m["cfg"], m["inputs"],
-                                      m["packed16"])
+    mmfi_times, mmfi_cublas = time_serving_kernels(
+        "MM-Fi ", m["cfg"], m["inputs"], m["packed16"])
     torch.cuda.reset_peak_memory_stats()
     ff_ms = time_ms(lambda: fast_forward_mmfi(m["packed16"], m["x"]), RUNS)
     peak = torch.cuda.max_memory_allocated()
@@ -1758,7 +1931,7 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
         f"kernels alone {kernels_ms:.4f} ms, the rest (input cast, layout "
         f"copies, projection, head, launch gaps) {ff_ms - kernels_ms:.4f} ms; "
         f"peak device memory while serving {peak / 2**30:.2f} GiB")
-    return record, mmfi_times
+    return record, mmfi_times, mmfi_cublas
 
 
 def build_kernels(only=None):
@@ -1796,6 +1969,11 @@ def build_kernels(only=None):
         path = kbuild.BUILD_DIR / f"{lib}.log"
         for fn, line in ptxas_report(path.read_text()):
             log(f"  ptxas {lib} {fn}: {line}")
+    for lib in SASS_LIBRARIES:
+        if lib in libraries:
+            for fn, counts in sass_counts(kbuild.library_path(lib)):
+                log(f"  sass {lib} {fn}: " + ", ".join(
+                    f"{op} {n}" for op, n in counts.items()))
     for k in all_kernels.values():
         if k.name in libraries:
             k.load()
@@ -1838,6 +2016,7 @@ def serving_phases(dev, kernels, all_kernels):
     log(f"phase 2: kernels vs plain versions, batch {b}")
     errs, inputs = check_serving_kernels(
         "", x32.transpose(1, 2).contiguous(), packed32, packed16)
+    check_random_serving_kernels("", cfg16, dev, b)
     a_in = inputs[2]                                 # [B, 15, 20, 64]
 
     # -- phase 3: the slice end to end --------------------------------------
@@ -1886,7 +2065,7 @@ def serving_phases(dev, kernels, all_kernels):
 
     # -- phase 4: timings ---------------------------------------------------
     log(f"phase 4: timings (CUDA events, median of {RUNS})")
-    times = time_serving_kernels("", cfg16, inputs, packed16)
+    times, cublas_ms = time_serving_kernels("", cfg16, inputs, packed16)
     a16 = a_in.to(torch.bfloat16)
     dec_in = attn_k.dual_axial_attention_eval(a16, packed16.attention)
     dec_ms = time_ms(lambda: decode(packed16, dec_in), RUNS)
@@ -1907,8 +2086,8 @@ def serving_phases(dev, kernels, all_kernels):
     v_errs, v_launches = check_attention_variants(
         all_kernels, a_in, packed32, packed16, x32, ref_out)
     mmfi = mmfi_slice(dev, all_kernels)
-    v_record, mmfi_times = variant_timings(cfg16, a_in, packed16, x32,
-                                           v_launches, v_errs, mmfi)
+    v_record, mmfi_times, mmfi_cublas = variant_timings(
+        cfg16, a_in, packed16, x32, v_launches, v_errs, mmfi)
 
     record = []
     for name, (ms, plain_ms, bms, by) in times.items():
@@ -1924,6 +2103,9 @@ def serving_phases(dev, kernels, all_kernels):
                        "mmfi_max_abs_err": mmfi["errs"][name],
                        "mmfi_ms": m_ms, "mmfi_plain_ms": m_plain,
                        "mmfi_bound_ms": m_bound, "mmfi_bound_by": m_by})
+    record[list(times).index("tcn_level")].update(
+        cublas_products_ms=cublas_ms,
+        mmfi_cublas_products_ms=mmfi_cublas)
     return record + v_record, cfg16
 
 

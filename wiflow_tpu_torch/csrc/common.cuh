@@ -28,6 +28,21 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(
   return __float2bfloat16_rn(v);
 }
 
+// n / d and n % d for 0 <= n < 2^21, d >= 1, from one float multiply
+// instead of an integer division (tens of instructions): (n + 0.5) / d lies
+// at least 0.5 / d away from an integer, and the float product's error is
+// below n / d * 2^-22, smaller than that for every such n.
+struct FastDiv {
+  int d;
+  float inv;
+  __host__ __device__ explicit FastDiv(int divisor = 1)
+      : d(divisor), inv(1.0f / divisor) {}
+  __device__ __forceinline__ int div(int n) const {
+    return __float2int_rz(__fmul_rn(__int2float_rn(n) + 0.5f, inv));
+  }
+  __device__ __forceinline__ int mod(int n) const { return n - div(n) * d; }
+};
+
 // torch.nn.functional.silu: x * sigmoid(x), with the fast exp and divide
 // (a few ulp of fp32, far below the bf16 rounding of every stored result)
 __device__ __forceinline__ float silu(float v) {

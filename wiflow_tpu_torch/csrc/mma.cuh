@@ -1,6 +1,8 @@
 // bf16 tensor-core primitives shared by the port's kernels (sm_90a):
-// mma.sync m16n8k16 with fp32 accumulation and the ldmatrix loads that
-// feed it from shared memory.
+// mma.sync m16n8k16 with fp32 accumulation, the ldmatrix loads that feed
+// it from shared memory, and the asynchronous copies (cp.async, and the
+// bulk copy with its mbarriers) that fill shared-memory rings from device
+// memory without passing through registers.
 //
 // Fragment layout of one warp (gid = lane / 4, tig = lane % 4):
 //   A (16 x 16, row-major): a0 = A[gid][2 tig ..], a1 = A[gid + 8][2 tig ..],
@@ -71,6 +73,77 @@ __device__ __forceinline__ void ldmatrix_x2_trans(uint32_t (&r)[2],
       "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
       : "=r"(r[0]), "=r"(r[1])
       : "r"(addr));
+}
+
+// 16 bytes from device to shared memory, asynchronously; with valid false
+// the 16 bytes are filled with zeros (src is not read).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid = true) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  const int bytes = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+               "l"(src), "r"(bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// mbarriers in shared memory, and the bulk copy (the Tensor Memory
+// Accelerator's 1-D form) that reports its bytes to one of them.
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_addr(bar)),
+               "r"(count));
+}
+
+// Makes the initialised barriers visible to the other threads and to the
+// asynchronous copies.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(
+                   smem_addr(bar))
+               : "memory");
+}
+
+// Waits until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], "
+        "%2; selp.u32 %0, 1, 0, p; }"
+        : "=r"(done)
+        : "r"(smem_addr(bar)), "r"(parity)
+        : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
+// shared memory; the barrier's phase completes when they have landed.  One
+// thread arrives for the copy.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              int bytes, uint64_t* bar) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
+      "[%1], %2, [%3];" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace wf

@@ -39,7 +39,7 @@ from wiflow_tpu_torch.ops.kernels.axial_attention import (
     dual_axial_attention_eval_v1, pack_axial_attention,
 )
 from wiflow_tpu_torch.ops.kernels.conv_stack import (
-    ConvBlockWeights, fused_conv_stack_eval, pack_conv_stack,
+    ConvStackWeights, fused_conv_stack_eval, pack_conv_stack,
 )
 from wiflow_tpu_torch.ops.kernels.tcn_level import (
     TcnLevelWeights, fused_tcn_eval, pack_tcn_levels,
@@ -54,7 +54,7 @@ class FastWeights:
     config: ModelConfig
     device: torch.device
     tcn: List[TcnLevelWeights]
-    conv: List[ConvBlockWeights]
+    conv: ConvStackWeights
     attention: Tuple[AxisWeights, AxisWeights]
     decoder: Tuple[torch.Tensor, ...]    # w1 [32, C, 3, 3], b1, w2, b2
 
@@ -164,7 +164,7 @@ class FastMMFiWeights:
     device: torch.device
     tcn: List[TcnLevelWeights]
     proj: Tuple[torch.Tensor, torch.Tensor]   # w [272, 288], bias
-    conv: List[ConvBlockWeights]
+    conv: ConvStackWeights
     attention: Tuple[AxisWeights, AxisWeights]
     head: Tuple[torch.Tensor, ...]            # w1 [32, C, 1, 1], b1, w2, b2
 

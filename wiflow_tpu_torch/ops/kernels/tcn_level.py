@@ -14,13 +14,19 @@ On a CUDA tensor it launches ``csrc/tcn_level.cu`` (one launch per level);
 on a CPU tensor it runs :func:`tcn_level_plain`, the same arithmetic in
 stock torch ops.  Unlike the TPU packer, the grouped taps stay grouped
 (``[3, G, ci, co]``): the block-diagonal form only filled the TPU's
-128-wide matrix unit.
+128-wide matrix unit.  :func:`level_weights` packs a level once more for
+the kernel (``kw``): each grouped conv as one ``[3 cgp, cg]`` matrix a group
+(taps, then the group's channels padded to ``cgp``, a multiple of 8), and
+the pointwise products P1, P2 and D as ``[K, C_out]`` matrices, K padded to
+16 and C_out to 8; bf16 in the tensor cores' B-fragment order
+(``fragments.py``), fp32 as they are.  :func:`tcn_plan` sizes the launch.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import List, Mapping, NamedTuple, Optional
+import functools
+from typing import List, Mapping, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,17 +34,20 @@ import torch.nn.functional as F
 from wiflow_tpu_torch.ops.kernels.build import (
     SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
 )
+from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
 from wiflow_tpu_torch.ops.norm import folded_bn
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("tcn_level", "tcn_level_forward",
-                    [_I, _P, _P] + [_I] * 9 + [_P] * 10 + [_P],
+                    [_I] + [_P] * 10,
                     replaces="wiflow_tpu/ops/pallas/tcn_level.py:113")
-# the kernel's weight tile in shared memory: 32 x 64 fp32 (CUDA-core
-# product) or the transposed 64 x (128 + 8) bf16 tile (tensor cores)
-_TILE_BYTES = {torch.float32: 32 * 64 * 4, torch.bfloat16: 64 * 136 * 2}
-_MAX_SAMPLES = 4
-_MAX_BUF_ROWS = 80
+_WARP_COLS = 8                # the kernel's 16 warps: 2 along the rows, 8 along N
+_MAX_NTW = 9                  # n-tiles of a warp: N <= 576
+_MAX_GROUP = 32               # channels of a group (4 n-tiles)
+_STAGES = 4                   # the weight ring (bf16)
+_ZERO_BYTES = 32
+_ROWS = {torch.bfloat16: 64, torch.float32: 32}   # rows of a tile
+_SMS = 132                    # streaming multiprocessors of an H100 SXM
 
 
 class TcnLevelWeights(NamedTuple):
@@ -55,6 +64,7 @@ class TcnLevelWeights(NamedTuple):
     dw: Optional[torch.Tensor]        # [C_in, C_out] when C_in != C_out
     db: Optional[torch.Tensor]        # [C_out]
     dilation: int
+    kw: Optional[torch.Tensor] = None   # the kernel's packing (level_weights)
 
 
 def pack_tcn_levels(state_dict: Mapping[str, torch.Tensor], n_levels: int,
@@ -94,9 +104,90 @@ def pack_tcn_levels(state_dict: Mapping[str, torch.Tensor], n_levels: int,
         dw = db = None
         if f"{p}.downsample.0.weight" in state_dict:
             dw, db = pointwise("downsample.0", "downsample.1")
-        levels.append(TcnLevelWeights(g1w, g1b, p1w, p1b, g2w, g2b, p2w, p2b,
-                                      dw, db, 2 ** i))
+        levels.append(level_weights(TcnLevelWeights(
+            g1w, g1b, p1w, p1b, g2w, g2b, p2w, p2b, dw, db, 2 ** i)))
     return levels
+
+
+def _cgp(cg: int) -> int:
+    """A group's channels padded to 8: 16 bytes, one ldmatrix row."""
+    return -(-cg // 8) * 8
+
+
+def _odd_words(width: int) -> int:
+    """A row of ``width`` elements (a multiple of 8) padded to an odd number
+    of 8-element words, so that an ldmatrix's 8 rows meet no bank
+    conflict."""
+    return width if width // 8 % 2 else width + 8
+
+
+class _WeightLayout(NamedTuple):
+    ks: Tuple[int, int, int, int, int]     # k-steps: G1, G2, P1, P2, D
+    offs: Tuple[int, int, int, int, int]   # first element of each in kw
+    total: int
+    ntiles: int                            # 8-column tiles of C_out
+
+
+@functools.lru_cache(maxsize=None)
+def _weight_layout(cin: int, cout: int, groups: int,
+                   has_d: bool) -> _WeightLayout:
+    cgi, cgo = cin // groups, cout // groups
+    ntiles = -(-cout // 8)
+    ks_g1, ks_g2 = -(-3 * _cgp(cgi) // 16), -(-3 * _cgp(cgo) // 16)
+    ks_p1, ks_p2 = -(-cin // 16), -(-cout // 16)
+    ks = (ks_g1, ks_g2, ks_p1, ks_p2, ks_p1 if has_d else 0)
+    sizes = (groups * ks_g1 * 16 * _cgp(cgi), groups * ks_g2 * 16 * _cgp(cgo),
+             ks_p1 * 16 * ntiles * 8, ks_p2 * 16 * ntiles * 8,
+             ks[4] * 16 * ntiles * 8)
+    offs, at = [], 0
+    for n in sizes:
+        offs.append(at)
+        at += n
+    return _WeightLayout(ks, tuple(offs), at, ntiles)
+
+
+def _group_matrices(w: torch.Tensor, ks: int) -> torch.Tensor:
+    """Grouped taps ``[3, G, cg, cg]`` -> ``[G, 16 ks, cgp]``: row ``j cgp +
+    i`` is input channel i of tap j, zero where padded."""
+    _, g, ci, co = w.shape
+    cp = _cgp(ci)
+    m = torch.zeros(3, g, cp, _cgp(co))
+    m[:, :, :ci, :co] = w.float().cpu()
+    m = m.permute(1, 0, 2, 3).reshape(g, 3 * cp, _cgp(co))
+    return F.pad(m, (0, 0, 0, 16 * ks - 3 * cp))
+
+
+def _dense_matrix(w: torch.Tensor, ks: int, ntiles: int) -> torch.Tensor:
+    k, n = w.shape
+    return F.pad(w.float().cpu(), (0, 8 * ntiles - n, 0, 16 * ks - k))
+
+
+def level_matrices(lv: TcnLevelWeights) -> List[torch.Tensor]:
+    """The kernel's five weight matrices of a level in fp32: G1 ``[G, 16
+    ks, cgp]``, G2, then P1, P2 and D ``[16 ks, 8 ntiles]`` (D empty for the
+    identity residual)."""
+    cin, cout = lv.p1w.shape
+    lay = _weight_layout(cin, cout, lv.g1w.shape[1], lv.dw is not None)
+    mats = [_group_matrices(lv.g1w, lay.ks[0]),
+            _group_matrices(lv.g2w, lay.ks[1]),
+            _dense_matrix(lv.p1w, lay.ks[2], lay.ntiles),
+            _dense_matrix(lv.p2w, lay.ks[3], lay.ntiles)]
+    mats.append(_dense_matrix(lv.dw, lay.ks[4], lay.ntiles)
+                if lv.dw is not None else torch.zeros(0, 8 * lay.ntiles))
+    return mats
+
+
+def level_weights(lv: TcnLevelWeights) -> TcnLevelWeights:
+    """``lv`` with ``kw``, the kernel's packing of its weights (see the
+    module note), in the weights' dtype and on their device."""
+    dt, dev = lv.p1w.dtype, lv.p1w.device
+    parts = []
+    for m in level_matrices(lv):
+        if dt == torch.bfloat16 and m.numel():
+            m = (torch.cat([to_fragments(g) for g in m]) if m.ndim == 3
+                 else to_fragments(m))
+        parts.append(m.reshape(-1))
+    return lv._replace(kw=torch.cat(parts).to(device=dev, dtype=dt))
 
 
 def _grouped_causal_plain(x: torch.Tensor, w: torch.Tensor,
@@ -125,10 +216,74 @@ def tcn_level_plain(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
     return silu(y + res).to(dt)
 
 
-def _buf_rows(samples: int, t: int) -> int:
-    """Rows of a block's activation buffer: its samples' rows, padded to
-    the tensor cores' 16-row tiles."""
-    return -(-samples * t // 16) * 16
+class TcnPlan(NamedTuple):
+    """One launch of the kernel: what ``csrc/tcn_level.cu`` is given."""
+
+    samples: int            # samples a tile of rows
+    rows: int               # rows of a tile, padded: 64 bf16, 32 fp32
+    grid: int               # blocks: one an SM, at most one a tile
+    blocks_per_sm: int
+    smem: int               # bytes of shared memory a block
+    stages: int             # weight ring (bf16), 0 in fp32
+    ntw: int                # n-tiles of a warp in the pointwise products
+    dims: Tuple[int, ...]   # the C side's 28 ints
+
+
+@functools.lru_cache(maxsize=None)
+def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
+             dil: int, has_d: bool, dtype: torch.dtype,
+             sms: int = _SMS) -> TcnPlan:
+    """The launch of one level on ``[batch, steps, cin]``.  Pure: the CPU
+    tests hold it.
+
+    Two shared-memory buffers of a tile of rows: buf0 holds x
+    group-padded, then h2 group-padded, then x dense; buf1 h1, then h3,
+    dense.  Then a row of zeros, each channel's group-padded column (2
+    bytes a channel, in and out) and, in bf16, a ring of 4 weight k-steps
+    with two 8-byte mbarriers a slot."""
+    if dtype not in _ROWS:
+        raise TypeError(f"tcn_level takes float32 or bfloat16, got {dtype}")
+    if cin % groups or cout % groups:
+        raise ValueError(f"{groups} groups do not divide {cin} -> {cout}")
+    if max(cin, cout) // groups > _MAX_GROUP:
+        raise ValueError(f"the kernel's grouped convs take at most "
+                         f"{_MAX_GROUP} channels a group")
+    lay = _weight_layout(cin, cout, groups, has_d)
+    if lay.ntiles > _WARP_COLS * _MAX_NTW:
+        raise ValueError(f"C_out = {cout}: the kernel takes at most "
+                         f"{8 * _WARP_COLS * _MAX_NTW} output channels")
+    rows = _ROWS[dtype]
+    samples = rows // steps
+    if samples < 1:
+        raise ValueError(f"{steps} time steps do not fit a tile of {rows} "
+                         f"rows")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    cgp_in, cgp_out = _cgp(cin // groups), _cgp(cout // groups)
+    ldg_in, ldg_out = _odd_words(groups * cgp_in), _odd_words(groups * cgp_out)
+    ldd_in = _odd_words(-(-cin // 16) * 16)
+    ldd_out = _odd_words(-(-cout // 16) * 16)
+    buf0, buf1 = max(ldg_in, ldg_out, ldd_in), max(ldd_in, ldd_out)
+
+    def al(v):
+        return -(-v // 16) * 16
+
+    stages = _STAGES if esize == 2 else 0
+    smem = al(rows * buf0 * esize) + al(rows * buf1 * esize) + _ZERO_BYTES \
+        + al(2 * (cin + cout)) + stages * (lay.ntiles * 256 + 16)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a tile of {rows} rows needs {smem} bytes of shared "
+                         f"memory, more than the {SMEM_LIMIT} of a block")
+    grid = min(-(-batch // samples), sms)
+    dims = (batch, steps, cin, cout, groups, dil, samples, cgp_in, cgp_out,
+            ldg_in, ldd_in, ldg_out, ldd_out, buf0, buf1, lay.ntiles,
+            *lay.ks, grid, smem, *lay.offs)
+    return TcnPlan(samples, rows, grid, 1, smem, stages,
+                   -(-lay.ntiles // _WARP_COLS), dims)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
@@ -147,11 +302,6 @@ def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
                     ("p2b", cout)):
         check_tensor(getattr(lv, name), name, device=dev,
                      dtype=torch.float32, shape=(n,))
-    if cin % groups or cout % groups:
-        raise ValueError(f"{groups} groups do not divide {cin} -> {cout}")
-    if dt == torch.bfloat16 and max(cin, cout) // groups > 32:
-        raise ValueError("the bf16 kernel's grouped convs take at most 32 "
-                         "channels per group")
     if (lv.dw is None) != (cin == cout):
         raise ValueError("the residual 1x1 is needed exactly when C_in != "
                          "C_out")
@@ -159,27 +309,19 @@ def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
         check_tensor(lv.dw, "dw", device=dev, dtype=dt, shape=(cin, cout))
         check_tensor(lv.db, "db", device=dev, dtype=torch.float32,
                      shape=(cout,))
-    # row stride: a multiple of 16 plus 8 keeps the tensor-core operand
-    # loads free of shared-memory bank conflicts
-    lda = -(-max(cin, cout) // 16) * 16 + 8
-    esize = x.element_size()
-
-    def smem(samples):
-        return 2 * _buf_rows(samples, t) * lda * esize + _TILE_BYTES[dt]
-
-    samples = _MAX_SAMPLES
-    while samples and (_buf_rows(samples, t) > _MAX_BUF_ROWS
-                       or smem(samples) > SMEM_LIMIT):
-        samples -= 1
-    if samples < 1:
-        raise ValueError(f"a [{t}, {max(cin, cout)}] sample does not fit one "
-                         f"thread block")
+    plan = tcn_plan(b, t, cin, cout, groups, lv.dilation, lv.dw is not None,
+                    dt, _sm_count(dev.index or 0))
+    if lv.kw is None:
+        raise ValueError("the level is not packed for the kernel: pass it "
+                         "through level_weights (pack_tcn_levels does)")
+    check_tensor(lv.kw, "kw", device=dev, dtype=dt,
+                 shape=(_weight_layout(cin, cout, groups,
+                                       lv.dw is not None).total,))
     out = torch.empty((b, t, cout), dtype=dt, device=dev)
-    KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), b * t, t, samples,
-                  _buf_rows(samples, t), lda, cin, cout, groups, lv.dilation,
-                  ptr(lv.g1w), ptr(lv.g1b), ptr(lv.p1w), ptr(lv.p1b),
-                  ptr(lv.g2w), ptr(lv.g2b), ptr(lv.p2w), ptr(lv.p2b),
-                  ptr(lv.dw), ptr(lv.db), stream_ptr(dev))
+    dims = (ctypes.c_int * len(plan.dims))(*plan.dims)
+    KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), ptr(lv.kw), ptr(lv.g1b),
+                  ptr(lv.p1b), ptr(lv.g2b), ptr(lv.p2b), ptr(lv.db), dims,
+                  stream_ptr(dev))
     return out
 
 
