@@ -11,7 +11,10 @@ Phases (any failure exits nonzero; nothing is caught):
    (one nvcc each, started together), with ptxas's registers and spills
    under each kernel's name, and the tensor-core instructions (``HMMA``,
    ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
-   ``conv_stack``, ``tcn_level`` and ``stage_fused``;
+   ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention`` and
+   ``axial_attention_dual``: the last two must list a bf16 and an fp32
+   kernel, the bf16 ones with ``HMMA`` (the projection on the tensor
+   cores), the fp32 ones with none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -20,7 +23,11 @@ Phases (any failure exits nonzero; nothing is caught):
    stack kernels again on N(0, 1) inputs through random weights scaled by
    their fan-in with nonzero biases (the seeded model serves nearly one
    output for every row), each reference checked to vary over rows, and a
-   second launch of each held to the first bit for bit;
+   second launch of each held to the first bit for bit; and the three
+   attention kernels (v2, the one-launch dual, v1 on each axis's
+   precomputed projection) likewise on random folded attention weights,
+   at batch 4096 and 7, the dual kernel equal to the v2 kernel bit for
+   bit;
 3. the slice end to end: the default ``ModelConfig`` (bf16) with seeded
    weights, ``fast_forward`` at batch 4096 (and at batch 7, which leaves
    thread blocks part-filled) against the port's plain-torch module, and
@@ -79,7 +86,8 @@ Phases (any failure exits nonzero; nothing is caught):
    precomputed QKV projection, rounded to the storage type) and the
    one-launch dual kernel against their plain versions at
    ``[4096, 15, 20, 64]`` and at batch 7, fp32 and bf16, the dual kernel
-   also against the v2 kernel; ``fast_forward(attention_impl="dual")`` must
+   also against the v2 kernel (equal bits);
+   ``fast_forward(attention_impl="dual")`` must
    launch the dual kernel once and the v2 and v1 kernels never,
    ``attention_impl="v1"`` the v1 kernel twice, and both agree with the
    plain-torch module;
@@ -87,8 +95,9 @@ Phases (any failure exits nonzero; nothing is caught):
    weights at batch 4096; the three serving kernels against their plain
    versions at its shapes (TCN ``[4096, 10, 342]`` -> 342 -> 306 -> 288 with
    18 groups, conv stack ``[40960, 272]``, attention ``[4096, 17, 10, 64]``)
-   and at part-filled blocks, and the random-weight checks of phase 2 at
-   its widths; ``fast_forward_mmfi`` (3 + 1 + 2 launches)
+   and at part-filled blocks, and the random-weight checks of phase 2
+   (attention included) at its widths; ``fast_forward_mmfi`` (3 + 1 + 2
+   launches)
    against the plain-torch ``WiFlowMMFiModel`` at batch 4096 and 7; the
    MM-Fi metrics of the served batch on the card against the same on the
    CPU;
@@ -163,8 +172,12 @@ STAGE_LAUNCHES = {"stage_fwd": 39, "stage_bwd": 39, "join_fwd": 9,
 FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 # Samples of the MM-Fi geometries that phase 8 holds (correctness only).
 MMFI_STAGE_BATCH = 33
-# Libraries whose tensor-core instructions phase 1 counts in the SASS.
-SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused")
+# Libraries whose tensor-core instructions phase 1 counts in the SASS, and
+# those of them whose kernels must use the tensor cores in bf16 and never
+# in fp32 (no TF32), which phase 1 asserts.
+SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
+                  "axial_attention_dual")
+SASS_CHECKED = ("axial_attention", "axial_attention_dual")
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
@@ -1515,6 +1528,29 @@ def random_serving_weights(cfg, gen, dev):
     return levels, blocks
 
 
+def random_axes(c, groups, gen, dev):
+    """fp32 folded ``AxisWeights`` of both attention axes: ``wq`` N(0,
+    1/C), so q, k and v of an N(0, 1) input are O(1); the logits' scale
+    (1 + U(0, 1)) / sqrt(8), so their std over keys is 1-2 and the softmax
+    neither flat nor one-hot; biases N(0, 0.5^2) and N(0, 1); the output
+    scale U(0.5, 1.5)."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+
+    def rand(*shape):
+        return torch.rand(shape, generator=gen, device=dev)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    axes = []
+    for _ in range(2):
+        sim = torch.stack([(1 + rand(groups)) / math.sqrt(8), randn(groups)])
+        oaff = torch.stack([0.5 + rand(c), 0.5 * randn(c)])
+        axes.append(attn_k.AxisWeights(randn(c, 3 * c) / math.sqrt(c),
+                                       0.5 * randn(3 * c), sim, oaff))
+    return tuple(axes)
+
+
 def check_spread(name, ref):
     """The reference must vary over rows: its std over rows, averaged over
     the outputs, at least MIN_SPREAD of max|ref|."""
@@ -1574,7 +1610,63 @@ def check_random_serving_kernels(tag, cfg, dev, batch):
             compare(f"{name} {label}, 7 samples",
                     kernel(xd[:n7].contiguous(), packed[dt]), ref[:n7], tol)
         del ref, got
+    check_random_attention_kernels(tag, cfg, dev, batch, gen)
     torch.cuda.synchronize()
+
+
+def check_random_attention_kernels(tag, cfg, dev, batch, gen):
+    """Rows 3, 4 and 5 on N(0, 1) inputs through ``random_axes`` at
+    ``cfg``'s attention shape: fp32 (TF32 off) and bf16 against the fp32 plain version at ``batch`` samples and
+    at 7, the reference checked for spread, a second launch of each held
+    to the first bit for bit, and the one-launch kernel to the v2 kernel
+    bit for bit.  Row 4 is held on each axis's precomputed projection
+    (rounded to the storage type before the kernel and the plain version
+    alike), and in fp32 also on both axes against the reference."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    bf = torch.bfloat16
+    h, w = cfg.num_keypoints, cfg.window_size
+    c = cfg.conv_channels[-1]
+    axes32 = random_axes(c, cfg.attention_groups, gen, dev)
+    packed = {dt: tuple(attn_k.axis_weights(aw._replace(wq=aw.wq.to(dt)))
+                        for aw in axes32) for dt in (torch.float32, bf)}
+    x = torch.randn((batch, h, w, c), generator=gen, device=dev)
+    ref = attn_k.dual_axial_attention_fused_plain(x, axes32)
+    name = f"{tag}random attention [{batch}, {h}, {w}, {c}]"
+    check_spread(name, ref)
+    for dt, tol in ((torch.float32, TOL_F32), (bf, TOL_BF16)):
+        label = "fp32" if dt == torch.float32 else "bf16"
+        axes = packed[dt]
+        for n, xd in ((batch, x.to(dt)), (7, x[:7].to(dt))):
+            v2 = attn_k.dual_axial_attention_eval(xd, axes)
+            compare(f"{name} v2 {label}, {n} samples", v2, ref[:n], tol)
+            same_bits(f"{name} v2 {label}, {n} samples", [v2],
+                      [attn_k.dual_axial_attention_eval(xd, axes)])
+            dual = attn_k.dual_axial_attention_eval_fused(xd, axes)
+            compare(f"{name} dual {label}, {n} samples", dual, ref[:n], tol)
+            same_bits(f"{name} dual {label}, {n} samples", [dual],
+                      [attn_k.dual_axial_attention_eval_fused(xd, axes)])
+            if not torch.equal(dual, v2):
+                raise AssertionError(f"{name} {label}, {n} samples: the "
+                                     f"dual and the v2 kernel differ")
+            log(f"  {name} {label}, {n} samples: dual == v2 bit for bit")
+            x_ax = xd
+            for aw, width in zip(axes, (True, False)):
+                axis = "width" if width else "height"
+                qkv = attn_k.project_qkv_v1(x_ax, aw)
+                got = attn_k.axial_attention_v1(qkv, aw.sim, aw.oaff, width)
+                compare(f"{name} v1 {axis} axis {label} vs fp32 plain on the "
+                        f"same qkv, {n} samples", got,
+                        attn_k.axial_attention_v1_plain(
+                            qkv.float(), aw.sim, aw.oaff, width), tol)
+                same_bits(f"{name} v1 {axis} axis {label}", [got],
+                          [attn_k.axial_attention_v1(qkv, aw.sim, aw.oaff,
+                                                     width)])
+                x_ax = got
+            if dt == torch.float32:
+                compare(f"{name} v1 both axes fp32, {n} samples", x_ax,
+                        ref[:n], tol)
+            del v2, dual, qkv, got, x_ax
+    del ref, x
 
 
 def conv_width(cfg):
@@ -1662,14 +1754,17 @@ def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
         d16 = attn_k.dual_axial_attention_eval_fused(a.to(bf),
                                                      packed16.attention)
         e = compare(f"dual bf16, {label}", d16, ref, TOL_BF16)
-        compare(f"dual fp32 vs the v2 kernel, {label}",
-                attn_k.dual_axial_attention_eval_fused(a, packed32.attention),
-                attn_k.dual_axial_attention_eval(a, packed32.attention),
-                TOL_F32)
-        compare(f"dual bf16 vs the v2 kernel, {label}", d16,
-                attn_k.dual_axial_attention_eval(a.to(bf),
-                                                 packed16.attention),
-                TOL_BF16)
+        for what, got, v2 in (
+                ("fp32", attn_k.dual_axial_attention_eval_fused(
+                    a, packed32.attention),
+                 attn_k.dual_axial_attention_eval(a, packed32.attention)),
+                ("bf16", d16, attn_k.dual_axial_attention_eval(
+                    a.to(bf), packed16.attention))):
+            if not torch.equal(got, v2):
+                raise AssertionError(f"dual {what}, {label}: the dual and "
+                                     f"the v2 kernel differ")
+            log(f"  dual {what} vs the v2 kernel, {label}: equal bit for "
+                f"bit")
         if main:
             errs["axial_attention_dual"] = e
         # row 4: each axis on its precomputed qkv (rounded to the storage
@@ -1971,9 +2066,24 @@ def build_kernels(only=None):
             log(f"  ptxas {lib} {fn}: {line}")
     for lib in SASS_LIBRARIES:
         if lib in libraries:
+            kinds = set()
             for fn, counts in sass_counts(kbuild.library_path(lib)):
                 log(f"  sass {lib} {fn}: " + ", ".join(
                     f"{op} {n}" for op, n in counts.items()))
+                # the kernels are templates on the storage type, whose
+                # name (mangled or not) says bfloat16 or not
+                bf16 = "bfloat16" in fn
+                kinds.add("bf16" if bf16 else "fp32")
+                if lib in SASS_CHECKED and (counts["HMMA"] > 0) != bf16:
+                    raise AssertionError(
+                        f"{lib} {fn}: HMMA {counts['HMMA']}; the bf16 "
+                        f"kernels must project on the tensor cores, the "
+                        f"fp32 ones on CUDA cores")
+            if lib in SASS_CHECKED and kinds != {"bf16", "fp32"}:
+                raise AssertionError(
+                    f"{lib}: cuobjdump listed kernels of {sorted(kinds)}, "
+                    f"not a bf16 and an fp32 one, so the HMMA check tested "
+                    f"nothing")
     for k in all_kernels.values():
         if k.name in libraries:
             k.load()

@@ -133,13 +133,27 @@ def test_fast_forward_attention_impl_matches_jax(impl):
 
 
 def test_dual_launcher_states_its_shared_memory():
-    """The one-launch kernel's block: weight tile, fp32 qkv and the input
-    rows of 80 staged positions, and the sample's intermediate."""
-    rows, cols, smem = ak.dual_smem_bytes(15, 20, 64, 4)
-    assert (rows, cols) == (4, 5)
-    assert smem == 32 * 64 * 4 + 80 * (3 * 64 + 4) * 4 + (80 + 300) * 64 * 4
-    assert smem <= 232448
-    # MM-Fi geometry: 8 rows of 10, 4 columns of 17
-    assert ak.dual_smem_bytes(17, 10, 64, 2)[:2] == (8, 4)
+    """The one-launch kernel's block (``attention_plan``): one axis's
+    packed bf16 weights, a zero row, the sample's intermediate, and fp32
+    qkv of the larger tile."""
+    dp = ak.attention_plan(4096, 15, 20, 64, 8, torch.float32).dual
+    assert (dp.rows, dp.cols) == (3, 4)
+    # fp32 stages no weights; positions C + 4 floats apart, an odd number
+    # of 16-byte words, and the intermediate's rows of W positions likewise;
+    # the input rows are staged into the intermediate; fp32 q, k, v rows of
+    # 3C + 24 floats
+    assert (dp.lda, dp.rstride) == (68, 20 * 68 + 4)
+    assert dp.layout == (0, 64 * 4, 15 * 1364 * 4, 60 * (3 * 64 + 24) * 4)
+    assert dp.smem == sum(dp.layout) <= 232448
+    # bf16 at the flagship geometry: the packed weights, the intermediate
+    # unpadded (its chunks swizzled), two blocks an SM
+    dp = ak.attention_plan(4096, 15, 20, 64, 8, torch.bfloat16).dual
+    assert dp.layout[:3] == (64 * 192 * 2, 128, 15 * 20 * 64 * 2)
+    assert dp.smem <= 113 * 1024
+    assert dp.blocks_per_sm == 2 and dp.grid == 2 * 132
+    # MM-Fi geometry: 6 rows of 10, 3 columns of 17
+    dp = ak.attention_plan(4096, 17, 10, 64, 8, torch.bfloat16).dual
+    assert (dp.rows, dp.cols) == (6, 3)
     # a sample too large for one block is refused, whatever the device
-    assert ak.dual_smem_bytes(32, 32, 128, 4)[2] > 232448
+    dp = ak.attention_plan(1, 32, 32, 128, 16, torch.float32).dual
+    assert dp.smem > 232448 and dp.blocks_per_sm == 0

@@ -20,13 +20,16 @@
 // columns of the projection in place and writes the columns of the output
 // in place: no transpose in device memory.  A block copies a few whole
 // sequences (at most 80 positions) of qkv into shared memory as fp32 with
-// 16-byte loads and runs the per-thread attention it shares with the v2
-// kernel (axial_attention_eval.cuh), the projection stage taken out.
+// 16-byte loads and runs the attention core it shares with the v2 kernel
+// (axial_attention_eval.cuh: a thread takes 2 queries of one group and
+// reads each key and value once for them), the projection stage taken out.
 #include "axial_attention_eval.cuh"
 
 namespace {
 
-using wf::kThreads;
+// A tile of at most 80 positions has at most 320 (sequence, query pair,
+// group) items of the core, one a thread.
+constexpr int kThreads = wf::kMaxAttnThreads;
 
 template <typename T>
 struct V1Args {
@@ -47,11 +50,12 @@ __device__ __forceinline__ long long seq_pos(const V1Args<T>& a, int s) {
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads) axial_attention_v1_kernel(
+__global__ void __launch_bounds__(kThreads, 2) axial_attention_v1_kernel(
     V1Args<T> a) {
   extern __shared__ __align__(16) unsigned char smem[];
   constexpr int kVec = 16 / sizeof(T);                     // values per load
-  const int c = a.c, c3 = 3 * c, ldq = c3 + 4, len = a.len;
+  const int c = a.c, c3 = 3 * c, ldq = wf::qkv_ld(c), len = a.len;
+  const wf::QkvLayout lay(c);
   float* qkv = reinterpret_cast<float*>(smem);             // [npos, ldq]
   const int s0 = blockIdx.x * a.seqs_per_block;
   const int nvalid = min(a.seqs_per_block, a.nseq - s0);
@@ -63,19 +67,22 @@ __global__ void __launch_bounds__(kThreads) axial_attention_v1_kernel(
     const T* src = a.qkv + (seq_pos(a, s0 + s) + l * a.seq_stride) * c3 + col;
     const uint4 raw = *reinterpret_cast<const uint4*>(src);
     const T* vals = reinterpret_cast<const T*>(&raw);
+    // kVec channels of one group of q, k or v: one or two 4-float halves
+    const int sec = col / c, r = col - sec * c;
+    float* dst = qkv + p * ldq;
 #pragma unroll
-    for (int k = 0; k < kVec; ++k) qkv[p * ldq + col + k] = wf::to_f(vals[k]);
+    for (int k = 0; k < kVec; k += 4)
+      *reinterpret_cast<float4*>(dst + lay.at(sec, r / 8, r % 8 + k)) =
+          make_float4(wf::to_f(vals[k]), wf::to_f(vals[k + 1]),
+                      wf::to_f(vals[k + 2]), wf::to_f(vals[k + 3]));
   }
   __syncthreads();
 
-  const int groups = a.groups;
-  for (int e = threadIdx.x; e < nvalid * len * groups; e += kThreads) {
-    const int g = e % groups, rest = e / groups;
-    const int i = rest % len, s = rest / len;
-    wf::attend_store(qkv + (s * len) * ldq, ldq, c, len, i, g, groups, a.sim,
-                     a.oaff,
-                     a.out + (seq_pos(a, s0 + s) + i * a.seq_stride) * c);
-  }
+  wf::attend_tile<T>(
+      qkv, c, len, nvalid, a.sim, a.oaff, [&](int s, int i, int g) {
+        return a.out + (seq_pos(a, s0 + s) + i * a.seq_stride) * c +
+               g * wf::kGroupChannels;
+      });
 }
 
 template <typename T>
@@ -85,7 +92,7 @@ int run(const void* qkv, void* out, int nseq, int len, int c, int groups,
         const void* oaff, size_t smem_bytes, void* stream) {
   if (c != groups * wf::kGroupChannels || len > wf::kMaxLen ||
       seqs_per_block < 1 ||
-      smem_bytes < (size_t)seqs_per_block * len * (3 * c + 4) * sizeof(float))
+      smem_bytes < (size_t)seqs_per_block * len * wf::qkv_ld(c) * sizeof(float))
     return (int)cudaErrorInvalidValue;
   V1Args<T> a{static_cast<const T*>(qkv), static_cast<T*>(out), nseq, len, c,
               groups, n_inner, inner_stride, outer_stride, seq_stride,

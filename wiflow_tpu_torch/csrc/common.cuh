@@ -49,62 +49,8 @@ __device__ __forceinline__ float silu(float v) {
   return __fdividef(v, 1.0f + __expf(-v));
 }
 
-// ---------------------------------------------------------------------------
-// Block-level product on CUDA cores: acc += A[rows, K] x W[K, n0:n0+64].
-//
-// 256 threads as 16 x 16: thread (ty, tx) owns rows ty, ty+16, ..., (up to
-// kMaxRows of them, i.e. at most 80 rows) and the 4 columns n0 + 4*tx ...
-// A lives in shared memory (row stride lda, element type T); W is read
-// from device memory row-major [K, N] and staged through a 32 x 64 float
-// tile `ws` (8 KB of shared memory).  Rows >= m and columns >= N
-// contribute zeros.  Starts and ends with __syncthreads() around `ws`.
-// ---------------------------------------------------------------------------
+// Threads of a block in the kernels that launch a fixed 256.
 constexpr int kThreads = 256;
-constexpr int kTileN = 64;
-constexpr int kTileK = 32;
-constexpr int kColsPerThread = 4;
-constexpr int kMaxRows = 5;
-constexpr int kTileFloats = kTileK * kTileN;
-
-template <typename T>
-__device__ __forceinline__ void gemm_acc(float (&acc)[kMaxRows][kColsPerThread],
-                                         const T* a, int lda, int m,
-                                         const T* __restrict__ w, int k_dim,
-                                         int n_dim, int n0, float* ws) {
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  for (int k0 = 0; k0 < k_dim; k0 += kTileK) {
-    __syncthreads();
-    for (int e = tid; e < kTileFloats; e += kThreads) {
-      const int kk = e / kTileN, nn = e % kTileN;
-      const int k = k0 + kk, n = n0 + nn;
-      ws[e] = (k < k_dim && n < n_dim) ? to_f(w[(size_t)k * n_dim + n]) : 0.f;
-    }
-    __syncthreads();
-    const int kmax = min(kTileK, k_dim - k0);
-    for (int kk = 0; kk < kmax; ++kk) {
-      const float4 w4 =
-          *reinterpret_cast<const float4*>(&ws[kk * kTileN + tx * 4]);
-#pragma unroll
-      for (int r = 0; r < kMaxRows; ++r) {
-        const int row = ty + 16 * r;
-        const float av = row < m ? to_f(a[row * lda + k0 + kk]) : 0.f;
-        acc[r][0] += av * w4.x;
-        acc[r][1] += av * w4.y;
-        acc[r][2] += av * w4.z;
-        acc[r][3] += av * w4.w;
-      }
-    }
-  }
-  __syncthreads();
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kMaxRows][kColsPerThread]) {
-#pragma unroll
-  for (int r = 0; r < kMaxRows; ++r)
-#pragma unroll
-    for (int c = 0; c < kColsPerThread; ++c) acc[r][c] = 0.f;
-}
 
 }  // namespace wf
 

@@ -17,31 +17,38 @@ the TPU kernel's scrambled order was a tiling choice, so the port needs no
 permutation downstream.  On a CUDA tensor each axis is one launch of
 ``csrc/axial_attention.cu``, which reads the height axis's columns in
 place through a sequence stride; on a CPU tensor the plain version runs.
+The kernels that project read ``AxisWeights.wpack``, ``wq`` packed once
+by :func:`axis_weights` (bf16 in tensor-core fragment order), and
+:func:`attention_plan` sizes their launches.
 
 The three lowerings compute one function and differ in their rounding
 points in bf16.  v2 and the fused kernel keep qkv in fp32 and round the
 first axis's output to ``x.dtype`` (v2 through device memory, the fused
-kernel in its on-chip intermediate), so they agree to rounding; v1 also
-rounds qkv to ``x.dtype``, because its projection is a ``torch.addmm``
-outside the kernel whose result the kernel reads from device memory.
+kernel in its on-chip intermediate); they run the same projection and
+core code and agree bit for bit.  v1 also rounds qkv to ``x.dtype``,
+because its projection is a ``torch.addmm`` outside the kernel whose
+result the kernel reads from device memory.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Mapping, NamedTuple, Tuple
+import functools
+from typing import Mapping, NamedTuple, Optional, Tuple
 
 import torch
 
 from wiflow_tpu_torch.ops.kernels.build import (
-    SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
+    SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
+    stream_ptr,
 )
+from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
 from wiflow_tpu_torch.ops.norm import folded_bn
 
 _P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 KERNEL = CudaKernel("axial_attention", "axial_attention_forward",
-                    [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
-                     _P, _P, _P, _P, ctypes.c_size_t, _P],
+                    [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I, _I,
+                     _I, _P, _P, _P, _P, ctypes.c_size_t, _P],
                     replaces="wiflow_tpu/ops/pallas/axial_attention.py:291")
 KERNEL_V1 = CudaKernel("axial_attention_v1", "axial_attention_v1_forward",
                        [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
@@ -49,13 +56,21 @@ KERNEL_V1 = CudaKernel("axial_attention_v1", "axial_attention_v1_forward",
                        replaces="wiflow_tpu/ops/pallas/axial_attention.py:125")
 KERNEL_DUAL = CudaKernel("axial_attention_dual",
                          "axial_attention_dual_forward",
-                         [_I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P,
-                          ctypes.c_size_t, _P],
+                         [_I, _P, _P] + [_I] * 11
+                         + [_P, ctypes.c_size_t, _P],
                          replaces="wiflow_tpu/ops/pallas/axial_attention.py:414")
 _GROUP_CHANNELS = 8
-_MAX_POSITIONS = 80
+_MAX_POSITIONS = 80           # positions a tile: v2 (and v1) launches
+_DUAL_POSITIONS = 64          # positions a tile of the one-launch kernel
 _MAX_LENGTH = 32
-_WEIGHT_TILE_BYTES = 32 * 64 * 4
+_MIN_THREADS = 128
+_QUERIES = 2                  # queries a thread of the core
+# a block's most threads (__launch_bounds__(n, 2)): the v2 kernel's
+# (axial_attention_eval.cuh: kMaxAttnThreads) and the dual kernel's
+_MAX_THREADS = 320
+_DUAL_MAX_THREADS = 256
+_SM_SMEM = 233472             # shared memory of an SM (228 KB)
+_BLOCK_RESERVED = 1024        # of it held back for each resident block
 
 
 class AxisWeights(NamedTuple):
@@ -65,13 +80,31 @@ class AxisWeights(NamedTuple):
     bq: torch.Tensor     # [3C] fp32
     sim: torch.Tensor    # [2, G] fp32: bn_similarity (scale, bias)
     oaff: torch.Tensor   # [2, C] fp32: bn_output (scale, bias)
+    wpack: Optional[torch.Tensor] = None   # the kernels' packing of wq
+    #                      (axis_weights): bf16 in tensor-core B-fragment
+    #                      order, fp32 [C, 3C] flat; None where C is not a
+    #                      multiple of 16
+
+
+def axis_weights(aw: AxisWeights) -> AxisWeights:
+    """``aw`` with ``wpack``, the kernels' packing of ``wq``: bf16 in the
+    order ``mma.sync`` reads its B fragments (``fragments.py``), fp32 as
+    it lies; None for widths the kernels do not take (C not a multiple of
+    16), which the plain version still serves."""
+    c = aw.wq.shape[0]
+    if c % 16:
+        return aw._replace(wpack=None)
+    if aw.wq.dtype == torch.bfloat16:
+        return aw._replace(wpack=to_fragments(aw.wq).contiguous())
+    return aw._replace(wpack=aw.wq.reshape(-1))
 
 
 def pack_axial_attention(state_dict: Mapping[str, torch.Tensor],
                          prefix: str = "attention", *, dtype: torch.dtype,
                          device: torch.device
                          ) -> Tuple[AxisWeights, AxisWeights]:
-    """Fold the BNs of ``{prefix}.width_axis`` / ``.height_axis``, once."""
+    """Fold the BNs of ``{prefix}.width_axis`` / ``.height_axis`` and pack
+    ``wq`` for the kernels, once."""
     axes = []
     for axis in ("width_axis", "height_axis"):
         p = f"{prefix}.{axis}"
@@ -81,10 +114,10 @@ def pack_axial_attention(state_dict: Mapping[str, torch.Tensor],
         sim = torch.stack(folded_bn(state_dict, f"{p}.bn_similarity"))
         oaff = torch.stack(folded_bn(state_dict, f"{p}.bn_output"))
         f32 = dict(device=device, dtype=torch.float32)
-        axes.append(AxisWeights(wq.to(device=device, dtype=dtype).contiguous(),
-                                bi.to(**f32).contiguous(),
-                                sim.to(**f32).contiguous(),
-                                oaff.to(**f32).contiguous()))
+        axes.append(axis_weights(AxisWeights(
+            wq.to(device=device, dtype=dtype).contiguous(),
+            bi.to(**f32).contiguous(), sim.to(**f32).contiguous(),
+            oaff.to(**f32).contiguous())))
     return axes[0], axes[1]
 
 
@@ -129,12 +162,150 @@ def _check_affines(sim: torch.Tensor, oaff: torch.Tensor, c: int,
 
 def _check_axis(aw: AxisWeights, c: int, dev: torch.device,
                 dt: torch.dtype) -> int:
-    """Check one axis's folded weights for a kernel that projects; its
-    groups."""
-    check_tensor(aw.wq, "wq", device=dev, dtype=dt, shape=(c, 3 * c))
+    """Check one axis's folded and packed weights for a kernel that
+    projects; its groups."""
     check_tensor(aw.bq, "bq", device=dev, dtype=torch.float32,
                  shape=(3 * c,))
+    if aw.wpack is None:
+        raise ValueError("the kernel reads the packed wq: pack the weights "
+                         "with pack_axial_attention or axis_weights (C must "
+                         f"be a multiple of 16, got {c})")
+    check_tensor(aw.wpack, "wpack", device=dev, dtype=dt,
+                 shape=(3 * c * c,))
     return _check_affines(aw.sim, aw.oaff, c, dev)
+
+
+# -- the launch plan ----------------------------------------------------------
+
+def _qkv_row(c: int) -> int:
+    """Bytes of a position's fp32 q, k, v in shared memory
+    (``axial_attention_eval.cuh``: ``qkv_ld``)."""
+    return (3 * c + 24) * 4
+
+
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _row_elems(n: int, esize: int) -> int:
+    """``n`` elements or more, a whole and odd number of 16-byte words: rows
+    that far apart put the 8 rows of an ldmatrix (or the 8 positions of a
+    warp's fp32 loads) in 8 different bank groups."""
+    words = -(-n * esize // 16)
+    return (words + 1 - words % 2) * 16 // esize
+
+
+def _core_threads(seqs: int, length: int, groups: int, most: int) -> int:
+    """Threads for the core's items of a tile (``_QUERIES`` queries of one
+    group each), whole warps, from 128 to ``most``; a tile with more items
+    takes them in turns."""
+    items = seqs * -(-length // _QUERIES) * groups
+    return max(_MIN_THREADS, min(most, -(-items // 32) * 32))
+
+
+def _blocks_per_sm(smem: int, threads: int, most: int) -> int:
+    """Blocks that fit an SM's shared memory and, with the registers that
+    launch bounds of ``most`` threads and two blocks allow a thread, its
+    65,536 registers."""
+    regs = 65536 // (2 * most)
+    return min(_SM_SMEM // (smem + _BLOCK_RESERVED), 65536 // (regs * threads))
+
+
+class AxisPlan(NamedTuple):
+    """One launch of ``csrc/axial_attention.cu`` along one axis."""
+
+    length: int          # L: positions a sequence
+    seqs: int            # whole sequences a tile
+    threads: int         # a block's threads
+    ldx: int             # elements of a staged input row
+    smem: int            # bytes of shared memory a block
+    layout: Tuple[int, int, int, int]   # bytes: weights, zero row, staged
+    #                      rows, fp32 q, k, v
+    blocks_per_sm: int
+    tiles: int
+    grid: int            # persistent: at most blocks_per_sm x SMs
+
+
+class DualPlan(NamedTuple):
+    """The launch of ``csrc/axial_attention_dual.cu``."""
+
+    rows: int            # whole rows of W positions a pass-1 tile
+    cols: int            # whole columns of H positions a pass-2 tile
+    threads: int
+    lda: int             # elements between positions of the intermediate
+    rstride: int         # elements between its rows of W positions
+    smem: int            # bytes of shared memory a block
+    layout: Tuple[int, int, int, int]   # bytes: one axis's weights, zero
+    #                      row, intermediate (which takes the staged input
+    #                      rows too), fp32 q, k, v
+    blocks_per_sm: int   # 0: a sample does not fit one block
+    grid: int
+
+
+class AttentionPlan(NamedTuple):
+    width: AxisPlan      # v2 along W
+    height: AxisPlan     # v2 along H
+    dual: DualPlan       # both axes in one launch
+
+
+@functools.lru_cache(maxsize=None)
+def attention_plan(batch: int, h: int, w: int, c: int, groups: int,
+                   dtype: torch.dtype, sms: int = SMS) -> AttentionPlan:
+    """The launches for ``[batch, h, w, c]`` with ``groups`` groups of 8
+    channels.  Pure: the CPU tests hold it.
+
+    A tile is whole sequences, at most 80 positions (v2) or 64 (the
+    one-launch kernel, which also holds the sample's intermediate).  A
+    block's threads cover the core's items of a tile; its shared memory
+    holds the resident bf16 weights (one axis), a zero row, the tile's
+    staged input rows and its fp32 q, k, v; the grid is the blocks that fit
+    the SMs at once, walking the tiles."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
+    if c != groups * _GROUP_CHANNELS:
+        raise ValueError(f"the kernels take {_GROUP_CHANNELS} channels per "
+                         f"group, got C={c}, G={groups}")
+    if c % 16:
+        raise ValueError(f"the kernels take C a multiple of 16 (the "
+                         f"tensor cores' depth), got C={c}")
+    if max(h, w) > _MAX_LENGTH:
+        raise ValueError(f"sequence length {max(h, w)} > {_MAX_LENGTH}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    wbytes = _align16(3 * c * c * 2) if esize == 2 else 0
+    ldx = _row_elems(c, esize)
+    qkv_row = _qkv_row(c)
+    axes = []
+    for length, nseq in ((w, batch * h), (h, batch * w)):
+        seqs = max(1, _MAX_POSITIONS // length)
+        npos = seqs * length
+        layout = (wbytes, _align16(ldx * esize), _align16(npos * ldx * esize),
+                  npos * qkv_row)
+        smem = sum(layout)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"a tile of {npos} positions needs {smem} bytes "
+                             f"of shared memory, more than {SMEM_LIMIT}")
+        threads = _core_threads(seqs, length, groups, _MAX_THREADS)
+        bps = _blocks_per_sm(smem, threads, _MAX_THREADS)
+        tiles = -(-nseq // seqs)
+        axes.append(AxisPlan(length, seqs, threads, ldx, smem, layout, bps,
+                             tiles, max(1, min(tiles, bps * sms))))
+    rows = max(1, min(h, _DUAL_POSITIONS // w))
+    cols = max(1, min(w, _DUAL_POSITIONS // h))
+    if esize == 2:   # positions C apart, 16-byte chunks swizzled
+        lda, rstride = c, w * c
+    else:
+        lda = ldx
+        rstride = _row_elems(w * lda, esize)
+    layout = (wbytes, _align16(c * esize), _align16(h * rstride * esize),
+              max(rows * w, cols * h) * qkv_row)
+    smem = sum(layout)
+    most = _DUAL_MAX_THREADS
+    threads = max(_core_threads(rows, w, groups, most),
+                  _core_threads(cols, h, groups, most))
+    bps = _blocks_per_sm(smem, threads, most) if smem <= SMEM_LIMIT else 0
+    dual = DualPlan(rows, cols, threads, lda, rstride, smem, layout, bps,
+                    min(batch, bps * sms))
+    return AttentionPlan(axes[0], axes[1], dual)
 
 
 def _launch(x: torch.Tensor, aw: AxisWeights, width: bool) -> torch.Tensor:
@@ -142,21 +313,17 @@ def _launch(x: torch.Tensor, aw: AxisWeights, width: bool) -> torch.Tensor:
     dev, dt = x.device, x.dtype
     check_tensor(x, "x", device=dev, dtype=dt)
     g = _check_axis(aw, c, dev, dt)
+    plan = attention_plan(b, h, w, c, g, dt, sm_count(dev.index or 0))
+    ap = plan.width if width else plan.height
     if width:      # sequences (b, h) along W
-        length, n_inner, inner, seq = w, h, w * c, c
+        n_inner, inner, seq = h, w * c, c
     else:          # sequences (b, w) along H, read as strided columns
-        length, n_inner, inner, seq = h, w, c, w * c
-    if length > _MAX_LENGTH:
-        raise ValueError(f"sequence length {length} > {_MAX_LENGTH}")
-    seqs = _MAX_POSITIONS // length
-    npos = seqs * length
-    smem = _WEIGHT_TILE_BYTES + npos * (3 * c + 4) * 4 + npos * c * \
-        x.element_size()
+        n_inner, inner, seq = w, c, w * c
     out = torch.empty_like(x)
-    KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), b * n_inner, length, c, g,
-                  n_inner, inner, h * w * c, seq, seqs, ptr(aw.wq),
-                  ptr(aw.bq), ptr(aw.sim), ptr(aw.oaff),
-                  ctypes.c_size_t(smem), stream_ptr(dev))
+    KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), b * n_inner, ap.length,
+                  c, g, n_inner, inner, h * w * c, seq, ap.seqs, ap.threads,
+                  ap.grid, ap.ldx, ptr(aw.wpack), ptr(aw.bq), ptr(aw.sim),
+                  ptr(aw.oaff), ctypes.c_size_t(ap.smem), stream_ptr(dev))
     return out
 
 
@@ -195,41 +362,29 @@ def dual_axial_attention_fused_plain(x: torch.Tensor,
                                  axes[1], False)
 
 
-def dual_smem_bytes(h: int, w: int, c: int,
-                    esize: int) -> Tuple[int, int, int]:
-    """(rows per pass, columns per pass, bytes of shared memory) of the
-    one-launch kernel for a ``[H, W, C]`` sample: the weight tile, fp32
-    qkv and the input rows of the positions staged at a time, and the
-    whole intermediate in the storage type."""
-    rows, cols = _MAX_POSITIONS // w, _MAX_POSITIONS // h
-    npos = max(rows * w, cols * h)
-    return rows, cols, (_WEIGHT_TILE_BYTES + npos * (3 * c + 4) * 4
-                        + (npos + h * w) * c * esize)
-
-
-def _launch_dual(x: torch.Tensor,
-                 axes: Tuple[AxisWeights, AxisWeights]) -> torch.Tensor:
+def _launch_dual(x: torch.Tensor, axes: Tuple[AxisWeights, AxisWeights]
+                 ) -> torch.Tensor:
     b, h, w, c = x.shape
     dev, dt = x.device, x.dtype
     check_tensor(x, "x", device=dev, dtype=dt)
     g = _check_axis(axes[0], c, dev, dt)
     if _check_axis(axes[1], c, dev, dt) != g:
         raise ValueError("the two axes have different group counts")
-    if max(h, w) > _MAX_LENGTH:
-        raise ValueError(f"sequence length {max(h, w)} > {_MAX_LENGTH}")
-    rows, cols, smem = dual_smem_bytes(h, w, c, x.element_size())
-    if smem > SMEM_LIMIT:
+    dp = attention_plan(b, h, w, c, g, dt, sm_count(dev.index or 0)).dual
+    if dp.blocks_per_sm < 1:
         raise ValueError(
-            f"a [{h}, {w}, {c}] {dt} sample needs {smem} bytes of shared "
-            f"memory in one thread block ({h * w * c * x.element_size()} of "
-            f"them its intermediate), more than the {SMEM_LIMIT} a block "
-            f"may use; attention_impl='v2' has no such limit")
+            f"a [{h}, {w}, {c}] {dt} sample needs {dp.smem} bytes of shared "
+            f"memory in one thread block ({dp.layout[2]} of them its "
+            f"intermediate), more than the {SMEM_LIMIT} a block may use; "
+            f"attention_impl='v2' has no such limit")
     out = torch.empty_like(x)
     ptrs = [t.data_ptr() for aw in axes
-            for t in (aw.wq, aw.bq, aw.sim, aw.oaff)]
+            for t in (aw.wpack, aw.bq, aw.sim, aw.oaff)]
     c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
-    KERNEL_DUAL.launch(dtype_code(dt), ptr(x), ptr(out), b, h, w, c, g, rows,
-                       cols, c_ptrs, ctypes.c_size_t(smem), stream_ptr(dev))
+    KERNEL_DUAL.launch(dtype_code(dt), ptr(x), ptr(out), b, h, w, c, g,
+                       dp.rows, dp.cols, dp.threads, dp.grid, dp.lda,
+                       dp.rstride, c_ptrs, ctypes.c_size_t(dp.smem),
+                       stream_ptr(dev))
     return out
 
 
@@ -293,7 +448,7 @@ def _launch_v1(qkv: torch.Tensor, sim: torch.Tensor, oaff: torch.Tensor,
     if length > _MAX_LENGTH:
         raise ValueError(f"sequence length {length} > {_MAX_LENGTH}")
     seqs = _MAX_POSITIONS // length
-    smem = seqs * length * (3 * c + 4) * 4
+    smem = seqs * length * _qkv_row(c)
     out = torch.empty((b, h, w, c), dtype=dt, device=dev)
     KERNEL_V1.launch(dtype_code(dt), ptr(qkv), ptr(out), b * n_inner, length,
                      c, g, n_inner, inner, h * w, seq, seqs, ptr(sim),

@@ -15,6 +15,7 @@ carries a hash of the sources and flags, so an edited kernel is rebuilt.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -32,6 +33,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
               "-Xptxas", "-v"]
 SMEM_LIMIT = 232448   # bytes of shared memory one block may use on sm_90
+SMS = 132             # streaming multiprocessors of an H100 SXM
 
 
 def _nvcc() -> str:
@@ -129,6 +131,12 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: launch failed with CUDA error "
                                f"{rc} ({msg})")
         self.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def dtype_code(dtype: torch.dtype) -> int:

@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from wiflow_tpu_torch.ops.kernels.build import (
-    SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
+    SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
+    stream_ptr,
 )
 from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
 from wiflow_tpu_torch.ops.norm import folded_bn
@@ -48,7 +49,6 @@ _WARPS = THREADS // 32
 _MAX_NT = 4                   # 8-column tiles of a warp unit
 _ZERO_BYTES = 512             # the kernel's row of zeros
 _MAX_TILE_ROWS = 32
-_SMS = 132                    # streaming multiprocessors of an H100 SXM
 
 
 class ConvBlockWeights(NamedTuple):
@@ -284,7 +284,7 @@ def _unit_shape(mtiles: int, ntot: int, ksteps: int) -> Tuple[int, int]:
 @functools.lru_cache(maxsize=None)
 def conv_stack_plan(rows: int, w0: int,
                     chans: Tuple[Tuple[int, int, int], ...],
-                    dtype: torch.dtype, sms: int = _SMS) -> ConvStackPlan:
+                    dtype: torch.dtype, sms: int = SMS) -> ConvStackPlan:
     """The launch for ``rows`` rows of ``w0`` features through blocks of
     ``chans`` = ((C_in, C_out, stride), ...).  Pure: the CPU tests hold it.
 
@@ -327,11 +327,6 @@ def conv_stack_plan(rows: int, w0: int,
                          tuple(lds), tuple(widths), tuple(units), tuple(dims))
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(x: torch.Tensor, stack: ConvStackWeights) -> torch.Tensor:
     if not isinstance(stack, ConvStackWeights):
         raise TypeError("the kernel takes the packed ConvStackWeights "
@@ -344,7 +339,7 @@ def _launch(x: torch.Tensor, stack: ConvStackWeights) -> torch.Tensor:
     check_tensor(stack.wpack, "wpack", device=dev, dtype=dt)
     check_tensor(stack.vec, "vec", device=dev, dtype=torch.float32)
     plan = conv_stack_plan(rows, w0, _chans(stack.blocks), dt,
-                           _sm_count(dev.index or 0))
+                           sm_count(dev.index or 0))
     if stack.vec.numel() != plan.nvec:
         raise ValueError("the packed vectors do not match the blocks")
     co = stack.blocks[-1].w1.shape[2]

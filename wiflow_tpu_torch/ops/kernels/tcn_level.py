@@ -32,7 +32,8 @@ import torch
 import torch.nn.functional as F
 
 from wiflow_tpu_torch.ops.kernels.build import (
-    SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
+    SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
+    stream_ptr,
 )
 from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
 from wiflow_tpu_torch.ops.norm import folded_bn
@@ -47,7 +48,6 @@ _MAX_GROUP = 32               # channels of a group (4 n-tiles)
 _STAGES = 4                   # the weight ring (bf16)
 _ZERO_BYTES = 32
 _ROWS = {torch.bfloat16: 64, torch.float32: 32}   # rows of a tile
-_SMS = 132                    # streaming multiprocessors of an H100 SXM
 
 
 class TcnLevelWeights(NamedTuple):
@@ -232,7 +232,7 @@ class TcnPlan(NamedTuple):
 @functools.lru_cache(maxsize=None)
 def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
              dil: int, has_d: bool, dtype: torch.dtype,
-             sms: int = _SMS) -> TcnPlan:
+             sms: int = SMS) -> TcnPlan:
     """The launch of one level on ``[batch, steps, cin]``.  Pure: the CPU
     tests hold it.
 
@@ -281,11 +281,6 @@ def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
                    -(-lay.ntiles // _WARP_COLS), dims)
 
 
-@functools.lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
     b, t, cin = x.shape
     cout = lv.p1w.shape[1]
@@ -310,7 +305,7 @@ def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
         check_tensor(lv.db, "db", device=dev, dtype=torch.float32,
                      shape=(cout,))
     plan = tcn_plan(b, t, cin, cout, groups, lv.dilation, lv.dw is not None,
-                    dt, _sm_count(dev.index or 0))
+                    dt, sm_count(dev.index or 0))
     if lv.kw is None:
         raise ValueError("the level is not packed for the kernel: pass it "
                          "through level_weights (pack_tcn_levels does)")
