@@ -11,10 +11,11 @@ Phases (any failure exits nonzero; nothing is caught):
    (one nvcc each, started together), with ptxas's registers and spills
    under each kernel's name, and the tensor-core instructions (``HMMA``,
    ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
-   ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention`` and
-   ``axial_attention_dual``: the last two must list a bf16 and an fp32
-   kernel, the bf16 ones with ``HMMA`` (the projection on the tensor
-   cores), the fp32 ones with none;
+   ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention``,
+   ``axial_attention_dual``, ``axial_attention_v1`` and ``axial_core``:
+   ``axial_attention`` and ``axial_attention_dual`` must list a bf16 and
+   an fp32 kernel, the bf16 ones with 126 and 252 ``HMMA`` (one projection
+   on the tensor cores, two), the fp32 ones with none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -40,10 +41,13 @@ Phases (any failure exits nonzero; nothing is caught):
    (cuBLAS), a yardstick of the tensor-core rate;
 5. the four train kernels (``axial_core`` and ``logits_sums``, forward and
    backward) against their plain versions at the train step's shapes for
-   batch 256 (width axis n=3840, L=20; height axis n=5120, L=15) and at 7
-   sequences, which leave the last thread block part-filled: fp32 with
-   TF32 off, the ``[2, G]`` sums and ``dscale`` also against float64, and
-   bf16 against the fp32 plain version;
+   batch 256 (width axis n=3840, L=20; height axis n=5120, L=15), at the
+   MM-Fi model's (n=4352, L=10; n=2560, L=17) and at 7 sequences of each
+   length, which leave the last tile part-filled: fp32 with TF32 off, the
+   ``[2, G]`` sums and ``dscale`` also against float64, and bf16 against
+   the fp32 plain version; a second launch of each ``axial_core`` kernel
+   must repeat the first bit for bit; each shape's ``train_attention_plan``
+   is printed;
 6. the training slice: the default ``ModelConfig`` (bf16, dropout
    0.5/0.3), seeded weights, AdamW, batch 256, 2 epochs of 16 steps over
    4096 windows on the card (the launch counters reset before the first
@@ -54,8 +58,10 @@ Phases (any failure exits nonzero; nothing is caught):
 7. timings: the train step (forward, backward, clip, AdamW) through the
    kernels and through the plain versions, in alternating turns, the
    host's time to enqueue one step, and a ``torch.profiler`` breakdown of
-   the step's device time; each train kernel against its plain version,
-   its bound and ``scaled_dot_product_attention``; peak memory;
+   the step's device time; each train kernel (CUDA events, and the
+   device's busy time in it) against its plain version, its bound and
+   ``scaled_dot_product_attention``, with ``axial_core``'s launch plan;
+   peak memory;
 8. the ``stage`` and ``join`` kernels, forward and backward, against their
    plain versions at the fused train step's shapes for batch 256 (every
    conv geometry, with prologue, mask and bias as the model uses them) and
@@ -173,11 +179,12 @@ FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 # Samples of the MM-Fi geometries that phase 8 holds (correctness only).
 MMFI_STAGE_BATCH = 33
 # Libraries whose tensor-core instructions phase 1 counts in the SASS, and
-# those of them whose kernels must use the tensor cores in bf16 and never
-# in fp32 (no TF32), which phase 1 asserts.
+# those of them whose kernels must use the tensor cores in bf16, with this
+# many HMMA (one projection, two), and never in fp32 (no TF32), which phase
+# 1 asserts.
 SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
-                  "axial_attention_dual")
-SASS_CHECKED = ("axial_attention", "axial_attention_dual")
+                  "axial_attention_dual", "axial_attention_v1", "axial_core")
+SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252}
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
@@ -386,12 +393,16 @@ def compare_leaves(what, got, ref, tol, floor_frac):
 
 
 def train_axes():
-    """(label, sequences, length) of the train kernels' launches: both
-    axes of the ``[256, 15, 20, 64]`` attention input, then 7 sequences,
-    which leave the last thread block part-filled."""
-    h, w = 15, 20
-    return [("width", TRAIN_BATCH * h, w), ("height", TRAIN_BATCH * w, h),
-            ("width, 7 seqs", 7, w), ("height, 7 seqs", 7, h)]
+    """(label, sequences, length, main) of the train kernels' launches: both
+    axes of the ``[256, 15, 20, 64]`` attention input (``main``: the train
+    step's), both of the MM-Fi model's ``[256, 17, 10, 64]``, then 7
+    sequences at each length, which leave the last tile part-filled."""
+    axes = []
+    for model, (h, w) in (("", (15, 20)), ("MM-Fi ", (17, 10))):
+        axes += [(f"{model}width", TRAIN_BATCH * h, w, not model),
+                 (f"{model}height", TRAIN_BATCH * w, h, not model)]
+    return axes + [(f"L={length}, 7 seqs", 7, length, False)
+                   for length in (20, 15, 10, 17)]
 
 
 def train_work(kind, shapes, c, g, esize):
@@ -436,12 +447,16 @@ def check_train_kernels(dev, c, g):
     """Phase 5.  Returns the bf16 inputs of the two main axes (for the
     timings of phase 7) and each kernel's largest bf16 error on them."""
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    from wiflow_tpu_torch.ops.kernels.build import sm_count
     log(f"phase 5: train kernels vs plain versions, batch {TRAIN_BATCH} "
         f"shapes")
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
     main16 = []
-    for label, n, length in train_axes():
+    for label, n, length, main in train_axes():
+        plan = tk.train_attention_plan(n, length, c, g, torch.bfloat16,
+                                       sm_count(0))
+        log(f"  {label}: n={n}, L={length}; axial_core's bf16 plan {plan}")
         qkv = torch.randn((n, length, 3 * c), generator=gen, device=dev)
         scale = torch.empty(g, device=dev).uniform_(0.25, 0.45, generator=gen)
         dout = torch.randn((n, length, c), generator=gen, device=dev)
@@ -464,10 +479,17 @@ def check_train_kernels(dev, c, g):
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             tag = f"{label}, {'fp32' if dt == torch.float32 else 'bf16'}"
             qt, kt, vt = qkv.to(dt).split(c, dim=-1)   # thirds, read in place
-            e = {"axial_core_fwd": compare(
-                f"axial_core fwd {tag}",
-                tk.axial_core_forward(qt, kt, vt, scale), core32[0], tol)}
+            e_out = tk.axial_core_forward(qt, kt, vt, scale)
+            e = {"axial_core_fwd": compare(f"axial_core fwd {tag}", e_out,
+                                           core32[0], tol)}
             grads = tk.axial_core_backward(qt, kt, vt, scale, dout.to(dt))
+            same_bits(f"axial_core fwd {tag}, a second launch",
+                      [tk.axial_core_forward(qt, kt, vt, scale)], [e_out])
+            same_bits(f"axial_core bwd {tag}, a second launch",
+                      tk.axial_core_backward(qt, kt, vt, scale, dout.to(dt)),
+                      grads)
+            log(f"  axial_core fwd and bwd {tag}: a second launch equal bit "
+                f"for bit")
             e["axial_core_bwd"] = max(
                 [compare(f"axial_core bwd {x} {tag}", got, ref, tol)
                  for x, got, ref in zip(("dq", "dk", "dv"), grads,
@@ -483,9 +505,9 @@ def check_train_kernels(dev, c, g):
             e["logits_sums_bwd"] = max(
                 compare(f"logits_sums bwd dq {tag}", dq, sums32[1], tol),
                 compare(f"logits_sums bwd dk {tag}", dk, sums32[2], tol))
-            if dt == torch.bfloat16 and "seqs" not in label:
+            if dt == torch.bfloat16 and main:
                 errs = {x: max(errs[x], e[x]) for x in errs}
-        if "seqs" not in label:
+        if main:
             main16.append((qkv.to(torch.bfloat16), scale,
                            dout.to(torch.bfloat16), dsums))
     torch.cuda.synchronize()
@@ -740,6 +762,7 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
     and, for ``axial_core``, ``scaled_dot_product_attention``."""
     import torch.nn.functional as F
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    from wiflow_tpu_torch.ops.kernels.build import sm_count
     from wiflow_tpu_torch.train.steps import train_step
     log(f"phase 7: train timings (CUDA events, median of {RUNS})")
 
@@ -829,24 +852,29 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
             grad_graphs(sums_fn, pairs), None),
     }
     shapes = [(qkv.shape[0], qkv.shape[1]) for qkv, *_ in main16]
+    for n, length in shapes:
+        plan = tk.train_attention_plan(n, length, c, g, torch.bfloat16,
+                                       sm_count(0))
+        log(f"  axial_core's plan, n={n}, L={length}: {plan}")
     record = []
     for name, (kfn, pfn, lfn) in cases.items():
         ms = time_ms(kfn, RUNS)
+        busy = device_ms(kfn)
         plain_ms = time_ms(pfn, max(3, RUNS // 4))
         lib_ms = time_ms(lfn, RUNS) if lfn else None
         flops, nbytes = train_work(name, shapes, c, g, 2)
         bms, by = bound_ms(flops, nbytes, torch.bfloat16)
         lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        log(f"  {name} (both axes): kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, scaled_dot_product_attention {lib}, bound "
-            f"{bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
-            f"{nbytes / 1e9:.4f} GB)")
+        log(f"  {name} (both axes): kernel {ms:.4f} ms (device busy "
+            f"{busy:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention {lib}, bound {bms:.4f} ms ({by}; "
+            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB)")
         kern = getattr(tk, KERNEL_ATTRS[name])
         record.append({"name": name, "route": "cuda", "source": kern.source,
                        "replaces": kern.replaces, "launches": launches[name],
                        "max_abs_err": errs[name], "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                       "library_ms": lib_ms})
+                       "library_ms": lib_ms, "device_busy_ms": busy})
     share = sum(r["ms"] for r in record)
     log(f"  the four train kernels alone: {share:.4f} ms = "
         f"{share / step_ms:.1%} of the train step")
@@ -2074,11 +2102,12 @@ def build_kernels(only=None):
                 # name (mangled or not) says bfloat16 or not
                 bf16 = "bfloat16" in fn
                 kinds.add("bf16" if bf16 else "fp32")
-                if lib in SASS_CHECKED and (counts["HMMA"] > 0) != bf16:
+                if lib in SASS_CHECKED and counts["HMMA"] != (
+                        SASS_CHECKED[lib] if bf16 else 0):
                     raise AssertionError(
                         f"{lib} {fn}: HMMA {counts['HMMA']}; the bf16 "
-                        f"kernels must project on the tensor cores, the "
-                        f"fp32 ones on CUDA cores")
+                        f"kernels must project on the tensor cores with "
+                        f"{SASS_CHECKED[lib]}, the fp32 ones on CUDA cores")
             if lib in SASS_CHECKED and kinds != {"bf16", "fp32"}:
                 raise AssertionError(
                     f"{lib}: cuobjdump listed kernels of {sorted(kinds)}, "

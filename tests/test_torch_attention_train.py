@@ -2,7 +2,8 @@
 
 ``axial_core`` and ``logits_sums`` (the port's plain versions, which its
 wrappers run on CPU tensors) against the Pallas kernels in interpret mode,
-values and VJPs, at both axes' lengths (20 and 15) and a sequence count
+values and VJPs, at both axes' lengths (20 and 15, and the MM-Fi model's
+10 and 17) and a sequence count
 that leaves the last block (``block=8``) part-filled; ``logits_moments``
 against brute-force logits.  The modules are held against flax in
 ``tests/test_torch_attention_train_modules.py``.
@@ -32,8 +33,11 @@ from wiflow_tpu_torch.ops.kernels.axial_attention_train import (
 
 GRAD_TOL = 1e-3
 C, G = 8, 4
+# the flagship's axes, then the MM-Fi model's ([B, 17, 10, C])
 AXES = [pytest.param(20, 11, id="width-L20"),
-        pytest.param(15, 11, id="height-L15")]
+        pytest.param(15, 11, id="height-L15"),
+        pytest.param(10, 11, id="mmfi-width-L10"),
+        pytest.param(17, 11, id="mmfi-height-L17")]
 
 
 def _close(got, ref, tol, what):

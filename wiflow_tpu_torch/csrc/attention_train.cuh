@@ -14,7 +14,6 @@
 namespace wf {
 
 constexpr int kGC = 8;        // channels per group
-constexpr int kMaxLen = 32;   // longest sequence a thread keeps in registers
 
 // Copy `nvalid` sequences starting at s0 from src ([N, L, *], position
 // stride ld) into dst ([npos, c] fp32); rows of missing sequences are

@@ -1,6 +1,7 @@
 // Shared stages of the eval axial-attention kernels (axial_attention.cu,
 // axial_attention_dual.cu, axial_attention_v1.cu): the QKV projection of a
-// tile of positions, and the attention core on the projected tile.
+// tile of positions, and the attention core on the projected tile, which
+// the train core's forward (axial_core.cu) runs too, without the affines.
 //
 // A tile is a few whole sequences of L <= 32 positions.  Its q, k, v live
 // in shared memory in fp32, as the TPU kernel keeps them, one row of
@@ -23,7 +24,6 @@
 namespace wf {
 
 constexpr int kGroupChannels = 8;
-constexpr int kMaxLen = 32;
 
 // A position's q, k, v row: three sections (q, k, v) of C + 8 floats; a
 // section holds channels 0-3 of every group (group g at 4 g), 4 floats of
@@ -241,7 +241,9 @@ __device__ __forceinline__ float ex2(float x) {
 // once a chunk, so each k_j and v_j is read once.  Consecutive threads
 // take the groups of one position, so a warp's device stores are whole
 // 128-byte rows.
-template <typename T, typename DstFn>
+// Affine = false is the train core (axial_core.cu): sim is the [G] scale
+// alone, b2 = 0, and the output is o, with no affine.
+template <typename T, bool Affine = true, typename DstFn>
 __device__ __forceinline__ void attend_tile(const float* qkv, int c, int len,
                                             int nseq,
                                             const float* __restrict__ sim,
@@ -262,7 +264,7 @@ __device__ __forceinline__ void attend_tile(const float* qkv, int c, int len,
     const float* kb = base + lay.sec;
     const float* vb = base + 2 * lay.sec;
     const float s2 = __ldg(sim + g) * kLog2e;
-    const float b2 = __ldg(sim + groups + g) * kLog2e;
+    const float b2 = Affine ? __ldg(sim + groups + g) * kLog2e : 0.f;
     float q[Q][8];
 #pragma unroll
     for (int u = 0; u < Q; ++u) {
@@ -327,15 +329,16 @@ __device__ __forceinline__ void attend_tile(const float* qkv, int c, int len,
     float so[8], bo[8];
 #pragma unroll
     for (int cc = 0; cc < 8; ++cc) {
-      so[cc] = __ldg(oaff + ch0 + cc);
-      bo[cc] = __ldg(oaff + c + ch0 + cc);
+      so[cc] = Affine ? __ldg(oaff + ch0 + cc) : 1.f;
+      bo[cc] = Affine ? __ldg(oaff + c + ch0 + cc) : 0.f;
     }
 #pragma unroll
     for (int u = 0; u < Q; ++u) {
       const float r = 1.0f / den[u];
       float out[8];
 #pragma unroll
-      for (int cc = 0; cc < 8; ++cc) out[cc] = o[u][cc] * r * so[cc] + bo[cc];
+      for (int cc = 0; cc < 8; ++cc)
+        out[cc] = Affine ? o[u][cc] * r * so[cc] + bo[cc] : o[u][cc] * r;
       if (u < nq) store_group(dst(s, i0 + u, g), out);
     }
   }

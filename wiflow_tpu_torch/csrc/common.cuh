@@ -52,6 +52,10 @@ __device__ __forceinline__ float silu(float v) {
 // Threads of a block in the kernels that launch a fixed 256.
 constexpr int kThreads = 256;
 
+// Longest sequence the attention kernels take: a thread keeps a row of up
+// to this many logits, or walks this many keys, in registers.
+constexpr int kMaxLen = 32;
+
 }  // namespace wf
 
 #define WF_EXPORT_ERROR_STRING                                \

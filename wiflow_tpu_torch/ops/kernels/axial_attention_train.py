@@ -10,7 +10,9 @@ standard group-major order, ``channel = g * gc + cc``):
 
 Both are ``torch.autograd.Function``s whose forward and backward are
 kernels (``csrc/axial_core.cu``, ``csrc/logits_sums.cu``, 8 channels per
-group); the backwards recompute the logits rather than save them.  The
+group); the backwards recompute the logits rather than save them.
+:func:`train_attention_plan` sizes the ``axial_core`` launches: tiles of
+whole sequences, threads, shared memory and a persistent grid.  The
 BatchNorm on the logits reduces to the per-group scale
 ``gamma * rsqrt(var + eps)`` (``models/wiflow.py::AxialAttention``), and
 ``logits_moments_fused`` gives the batch (mean, var) it needs from the
@@ -26,24 +28,26 @@ carried over.
 from __future__ import annotations
 
 import ctypes
-from typing import List, Sequence, Tuple
+import functools
+from typing import List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
 
 from wiflow_tpu_torch.ops.kernels.build import (
-    CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
+    SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
+    stream_ptr,
 )
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _TPU = "wiflow_tpu/ops/pallas/axial_attention_train.py"
 CORE_FORWARD = CudaKernel(
     "axial_core", "axial_core_forward",
-    [_I, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _P, _P],
+    [_I, _P, _P, _P, _I, _P] + [_I] * 7 + [_P, _S, _P],
     replaces=f"{_TPU}:217")
 CORE_BACKWARD = CudaKernel(
     "axial_core", "axial_core_backward",
-    [_I, _P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P, _P, _P],
+    [_I, _P, _P, _P, _I, _P, _P, _P, _P] + [_I] * 7 + [_P, _P, _P, _S, _P],
     replaces=f"{_TPU}:244")
 SUMS_FORWARD = CudaKernel(
     "logits_sums", "logits_sums_forward",
@@ -57,7 +61,20 @@ KERNELS = (CORE_FORWARD, CORE_BACKWARD, SUMS_FORWARD, SUMS_BACKWARD)
 
 _GROUP_CHANNELS = 8
 _MAX_LEN = 32
-_POSITIONS_PER_BLOCK = 80
+_POSITIONS_PER_BLOCK = 80     # logits_sums: whole sequences a block
+# axial_core's tiles: positions a tile, at most, forward and backward (the
+# fastest of 80, 60, 48, 40 and 30 on an H100 at both models' train shapes:
+# ``train_attention_sweep.py``)
+_FORWARD_POSITIONS = 40
+_BACKWARD_POSITIONS = 60
+_QUERIES = 2                  # queries (backward pass 2: keys) a thread
+# a block's most threads (csrc/axial_attention_eval.cuh: kMaxAttnThreads),
+# and the registers a thread may use under __launch_bounds__(320, 2): 32
+# threads x 96 registers a warp, allocated in whole units of 256
+_MAX_THREADS = 320
+_MAX_REGISTERS = 65536 // (2 * _MAX_THREADS) // 8 * 8
+_SM_SMEM = 233472             # shared memory of an SM (228 KB)
+_BLOCK_RESERVED = 1024        # of it held back for each resident block
 
 
 # ---------------------------------------------------------------------------
@@ -114,12 +131,116 @@ def logits_moments(q: torch.Tensor, k: torch.Tensor, groups: int
 # kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
 
+def _align16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+def _staged_row(c: int, backward: bool) -> int:
+    """Floats of a staged position: q, k, v (and dout) in sections of C + 8
+    (``csrc/axial_attention_eval.cuh``: ``qkv_ld``; ``axial_core.cu``:
+    ``bwd_ld``)."""
+    return 4 * c + 32 if backward else 3 * c + 24
+
+
+class CorePlan(NamedTuple):
+    """One launch of ``csrc/axial_core.cu``."""
+
+    seqs: int            # whole sequences a tile
+    threads: int         # a block's threads
+    smem: int            # bytes of shared memory a block
+    layout: Tuple[int, ...]   # bytes: the staged fp32 rows; backward also
+    #                      the next tile's rows as they come, the row
+    #                      statistics, the dscale terms, the dscale sums
+    blocks_per_sm: int
+    tiles: int
+    grid: int            # persistent: at most blocks_per_sm x SMs
+
+
+class TrainAttentionPlan(NamedTuple):
+    forward: CorePlan
+    backward: CorePlan
+
+
+def _core_threads(items: int) -> int:
+    """Whole warps, at most ``_MAX_THREADS``, that take a tile's ``items``
+    in whole turns of equal size."""
+    turns = -(-items // _MAX_THREADS)
+    return -(-items // (turns * 32)) * 32
+
+
+def _blocks_per_sm(smem: int, threads: int) -> int:
+    """Blocks that fit an SM's shared memory and its 65,536 registers at
+    ``_MAX_REGISTERS`` a thread."""
+    warps = threads // 32
+    return min(_SM_SMEM // (smem + _BLOCK_RESERVED),
+               65536 // (_MAX_REGISTERS * 32 * warps))
+
+
+def _core_plan(nseq: int, length: int, c: int, groups: int, esize: int,
+               positions: int, backward: bool, sms: int) -> CorePlan:
+    seqs = max(1, positions // length)
+    npos = seqs * length
+    layout = (npos * _staged_row(c, backward) * 4,)
+    if backward:
+        pairs = -(-length // _QUERIES)
+        layout += (npos * 4 * c * esize, _align16(npos * groups * 8),
+                   _align16(seqs * pairs * groups * 4), _align16(groups * 4))
+    smem = sum(layout)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"a tile of {npos} positions needs {smem} bytes of "
+                         f"shared memory, more than {SMEM_LIMIT}")
+    threads = _core_threads(seqs * -(-length // _QUERIES) * groups)
+    bps = _blocks_per_sm(smem, threads)
+    tiles = -(-nseq // seqs)
+    return CorePlan(seqs, threads, smem, layout, bps, tiles,
+                    max(1, min(tiles, bps * sms)))
+
+
+@functools.lru_cache(maxsize=None)
+def train_attention_plan(nseq: int, length: int, c: int, groups: int,
+                         dtype: torch.dtype, sms: int = SMS
+                         ) -> TrainAttentionPlan:
+    """The forward and backward launches of ``axial_core`` on ``nseq``
+    sequences of ``length`` positions, ``c = 8 groups`` channels.  Pure: the
+    CPU tests hold it.
+
+    A tile is whole sequences, at most ``_FORWARD_POSITIONS`` /
+    ``_BACKWARD_POSITIONS`` positions.  A block's threads take the tile's
+    (sequence, query pair, group) items in whole turns; its shared memory
+    holds the tile's rows staged in fp32 and, backward, the next tile's
+    rows in ``dtype`` as they arrive, the rows' statistics and the dscale
+    terms; the grid is the blocks that fit the SMs at once (shared
+    memory, and registers at the kernels' launch bounds), walking the
+    tiles."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"axial_core takes float32 or bfloat16, got {dtype}")
+    if c != groups * _GROUP_CHANNELS or groups < 1:
+        raise ValueError(f"the kernels take {_GROUP_CHANNELS} channels per "
+                         f"group, got C={c}, G={groups}")
+    if not 1 <= length <= _MAX_LEN:
+        raise ValueError(f"the kernels take 1 <= L <= {_MAX_LEN}, got "
+                         f"L={length}")
+    if nseq < 1:
+        raise ValueError(f"no sequences: N={nseq}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    return TrainAttentionPlan(
+        _core_plan(nseq, length, c, groups, esize, _FORWARD_POSITIONS, False,
+                   sms),
+        _core_plan(nseq, length, c, groups, esize, _BACKWARD_POSITIONS, True,
+                   sms))
+
+
+def _aligned(t: torch.Tensor) -> bool:
+    return t.data_ptr() % 16 == 0
+
+
 def _rows(ts: Sequence[torch.Tensor], names: Sequence[str]
           ) -> Tuple[List[torch.Tensor], int]:
     """Check ``[N, L, C]`` inputs of one device and dtype; return them with
     their common position stride ``ld`` when they share the strides
-    ``(L * ld, ld, 1)`` (e.g. thirds of one ``[N, L, 3C]`` tensor), else
-    contiguous copies and ``ld = C``."""
+    ``(L * ld, ld, 1)`` (e.g. thirds of one ``[N, L, 3C]`` tensor) and the
+    kernels' 16-byte loads can read them, else contiguous aligned copies
+    and ``ld = C``."""
     n, length, c = ts[0].shape
     dev, dt = ts[0].device, ts[0].dtype
     for t, name in zip(ts, names):
@@ -133,12 +254,22 @@ def _rows(ts: Sequence[torch.Tensor], names: Sequence[str]
                          f"{_GROUP_CHANNELS} channels per group, got "
                          f"L={length}, C={c}")
     ld = ts[0].stride(1)
-    if ld >= c and all(t.stride() == (length * ld, ld, 1) for t in ts):
+    if (ld >= c and ld * ts[0].element_size() % 16 == 0
+            and all(t.stride() == (length * ld, ld, 1) and _aligned(t)
+                    for t in ts)):
         return list(ts), ld
-    return [t.contiguous() for t in ts], c
+    return [_contiguous(t) for t in ts], c
 
 
-def _launch_shape(q: torch.Tensor, groups: int) -> Tuple[int, int, int, int]:
+def _contiguous(t: torch.Tensor) -> torch.Tensor:
+    """``t`` if contiguous and 16-byte aligned, else such a copy."""
+    if t.is_contiguous() and _aligned(t):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
+def _sums_launch(q: torch.Tensor, groups: int) -> Tuple[int, int, int, int]:
+    """(N, L, sequences a block, blocks) of a ``logits_sums`` launch."""
     n, length, c = q.shape
     if c != groups * _GROUP_CHANNELS:
         raise ValueError(f"the kernels take {_GROUP_CHANNELS} channels per "
@@ -147,18 +278,28 @@ def _launch_shape(q: torch.Tensor, groups: int) -> Tuple[int, int, int, int]:
     return n, length, seqs, -(-n // seqs)
 
 
+def _core_launch(q: torch.Tensor, scale: torch.Tensor
+                 ) -> Tuple[TrainAttentionPlan, int]:
+    g = scale.shape[0]
+    check_tensor(scale, "scale", device=q.device, dtype=torch.float32,
+                 shape=(g,))
+    n, length, c = q.shape
+    return train_attention_plan(n, length, c, g, q.dtype,
+                                sm_count(q.device.index or 0)), g
+
+
 def axial_core_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        scale: torch.Tensor) -> torch.Tensor:
     """One launch of the forward kernel: ``out [N, L, C]`` in q's dtype."""
     (q, k, v), ld = _rows((q, k, v), ("q", "k", "v"))
-    g = scale.shape[0]
+    plan, g = _core_launch(q, scale)
+    fp = plan.forward
+    n, length, c = q.shape
     dev, dt = q.device, q.dtype
-    check_tensor(scale, "scale", device=dev, dtype=torch.float32, shape=(g,))
-    n, length, seqs, _ = _launch_shape(q, g)
-    c = q.shape[2]
     out = torch.empty((n, length, c), device=dev, dtype=dt)
     CORE_FORWARD.launch(dtype_code(dt), ptr(q), ptr(k), ptr(v), ld, ptr(out),
-                        n, length, c, g, seqs, ptr(scale), stream_ptr(dev))
+                        n, length, c, g, fp.seqs, fp.threads, fp.grid,
+                        ptr(scale), _S(fp.smem), stream_ptr(dev))
     return out
 
 
@@ -168,20 +309,20 @@ def axial_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """One launch of the backward kernel (and its float64 reduction of
     dscale): ``(dq, dk, dv)`` in q's dtype and ``dscale [G]`` fp32."""
     (q, k, v), ld = _rows((q, k, v), ("q", "k", "v"))
-    g = scale.shape[0]
+    plan, g = _core_launch(q, scale)
+    bp = plan.backward
     dev, dt = q.device, q.dtype
-    check_tensor(scale, "scale", device=dev, dtype=torch.float32, shape=(g,))
-    dout = dout.contiguous()
+    dout = _contiguous(dout)
     check_tensor(dout, "dout", device=dev, dtype=dt, shape=q.shape)
-    n, length, seqs, blocks = _launch_shape(q, g)
-    c = q.shape[2]
+    n, length, c = q.shape
     dq, dk, dv = (torch.empty((n, length, c), device=dev, dtype=dt)
                   for _ in range(3))
-    partial = torch.empty((blocks, g), device=dev, dtype=torch.float32)
+    partial = torch.empty((bp.grid, g), device=dev, dtype=torch.float32)
     dscale = torch.empty((g,), device=dev, dtype=torch.float32)
     CORE_BACKWARD.launch(dtype_code(dt), ptr(q), ptr(k), ptr(v), ld,
                          ptr(dout), ptr(dq), ptr(dk), ptr(dv), n, length, c,
-                         g, seqs, ptr(scale), ptr(partial), ptr(dscale),
+                         g, bp.seqs, bp.threads, bp.grid, ptr(scale),
+                         ptr(partial), ptr(dscale), _S(bp.smem),
                          stream_ptr(dev))
     return dq, dk, dv, dscale
 
@@ -192,7 +333,7 @@ def logits_sums_forward(q: torch.Tensor, k: torch.Tensor,
     blocks): ``[2, G]`` fp32."""
     (q, k), ld = _rows((q, k), ("q", "k"))
     dev = q.device
-    n, length, seqs, blocks = _launch_shape(q, groups)
+    n, length, seqs, blocks = _sums_launch(q, groups)
     partial = torch.empty((blocks, 2 * groups), device=dev,
                           dtype=torch.float32)
     sums = torch.empty((2, groups), device=dev, dtype=torch.float32)
@@ -212,7 +353,7 @@ def logits_sums_backward(q: torch.Tensor, k: torch.Tensor,
     dsums = dsums.float().contiguous()
     check_tensor(dsums, "dsums", device=dev, dtype=torch.float32,
                  shape=(2, groups))
-    n, length, seqs, _ = _launch_shape(q, groups)
+    n, length, seqs, _ = _sums_launch(q, groups)
     c = q.shape[2]
     dq, dk = (torch.empty((n, length, c), device=dev, dtype=dt)
               for _ in range(2))
