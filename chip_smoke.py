@@ -12,10 +12,11 @@ Phases (any failure exits nonzero; nothing is caught):
    under each kernel's name, and the tensor-core instructions (``HMMA``,
    ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
    ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention``,
-   ``axial_attention_dual``, ``axial_attention_v1`` and ``axial_core``:
-   ``axial_attention`` and ``axial_attention_dual`` must list a bf16 and
-   an fp32 kernel, the bf16 ones with 126 and 252 ``HMMA`` (one projection
-   on the tensor cores, two), the fp32 ones with none;
+   ``axial_attention_dual``, ``axial_attention_v1``, ``axial_core`` and
+   ``logits_sums``: ``axial_attention``, ``axial_attention_dual`` and
+   ``logits_sums`` must list a bf16 and an fp32 kernel, the bf16 ones with
+   126, 252 and 0 ``HMMA`` (one projection on the tensor cores, two, none),
+   the fp32 ones with none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -42,12 +43,17 @@ Phases (any failure exits nonzero; nothing is caught):
 5. the four train kernels (``axial_core`` and ``logits_sums``, forward and
    backward) against their plain versions at the train step's shapes for
    batch 256 (width axis n=3840, L=20; height axis n=5120, L=15), at the
-   MM-Fi model's (n=4352, L=10; n=2560, L=17) and at 7 sequences of each
+   MM-Fi model's (n=4352, L=10; n=2560, L=17), at the flagship's for
+   ``TrainConfig``'s default batch, 64 (n=960, L=20; n=1280, L=15: the
+   ``logits_sums`` kernels split a sequence's positions over 2 ranges on
+   the first, over 4 at 7 sequences), and at 7 sequences of each
    length, which leave the last tile part-filled: fp32 with TF32 off, the
    ``[2, G]`` sums and ``dscale`` also against float64, and bf16 against
-   the fp32 plain version; a second launch of each ``axial_core`` kernel
-   must repeat the first bit for bit; each shape's ``train_attention_plan``
-   is printed;
+   the fp32 plain version; a second launch of each kernel must repeat the
+   first bit for bit, and so must the ``logits_sums`` forward on another
+   stream and replayed from a CUDA graph; each shape's
+   ``train_attention_plan`` and
+   ``sums_plan`` are printed;
 6. the training slice: the default ``ModelConfig`` (bf16, dropout
    0.5/0.3), seeded weights, AdamW, batch 256, 2 epochs of 16 steps over
    4096 windows on the card (the launch counters reset before the first
@@ -61,7 +67,8 @@ Phases (any failure exits nonzero; nothing is caught):
    the step's device time; each train kernel (CUDA events, and the
    device's busy time in it) against its plain version, its bound and
    ``scaled_dot_product_attention``, with ``axial_core``'s launch plan;
-   peak memory;
+   the host's time in one call of each ``logits_sums`` wrapper; peak
+   memory;
 8. the ``stage`` and ``join`` kernels, forward and backward, against their
    plain versions at the fused train step's shapes for batch 256 (every
    conv geometry, with prologue, mask and bias as the model uses them) and
@@ -114,9 +121,12 @@ Phases (any failure exits nonzero; nothing is caught):
    three serving kernels at the MM-Fi shapes with their bounds.
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases.  The line before the last
-is the kernels' JSON record (13 rows), the last line
-``{"ok": true, "device": {...}}``.  The script imports nothing of JAX.
+run after phase 4, before the training phases.  The last lines are the
+card's name and power limit, the kernels' JSON record (13 rows), a summary
+of the run (serving and step times, the steps' device busy time and the
+train kernels' share of it, rows 6-9's device busy and CUDA-event times,
+the ``logits_sums`` wrappers' host time) and ``{"ok": true, "device":
+{...}}``.  The script imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -155,6 +165,7 @@ TOL_BF16 = 2e-2
 # weights and inputs.
 BATCH = 4096
 TRAIN_BATCH = 256
+DEFAULT_BATCH = 64          # ``TrainConfig``'s default (core/config.py)
 TRAIN_WINDOWS = 4096
 RUNS = 20
 SEED = 0
@@ -180,16 +191,23 @@ FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 MMFI_STAGE_BATCH = 33
 # Libraries whose tensor-core instructions phase 1 counts in the SASS, and
 # those of them whose kernels must use the tensor cores in bf16, with this
-# many HMMA (one projection, two), and never in fp32 (no TF32), which phase
-# 1 asserts.
+# many HMMA (one projection, two; none in ``logits_sums``, whose products
+# are 8 x 8), and never in fp32 (no TF32), which phase 1 asserts.
 SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
-                  "axial_attention_dual", "axial_attention_v1", "axial_core")
-SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252}
+                  "axial_attention_dual", "axial_attention_v1", "axial_core",
+                  "logits_sums")
+SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252,
+                "logits_sums": 0}
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
 # (seeded model weights give nearly one output for every row).
 MIN_SPREAD = 1e-2
+
+
+# Short readings of the run, printed together just before the last line,
+# where the end of a long output keeps them.
+SUMMARY: list[str] = []
 
 
 def log(*a):
@@ -395,12 +413,18 @@ def compare_leaves(what, got, ref, tol, floor_frac):
 def train_axes():
     """(label, sequences, length, main) of the train kernels' launches: both
     axes of the ``[256, 15, 20, 64]`` attention input (``main``: the train
-    step's), both of the MM-Fi model's ``[256, 17, 10, 64]``, then 7
-    sequences at each length, which leave the last tile part-filled."""
+    step's), both of the MM-Fi model's ``[256, 17, 10, 64]``, both of the
+    flagship's at ``TrainConfig``'s default batch (``DEFAULT_BATCH``; the
+    ``logits_sums`` kernels split the width axis's positions over 2
+    ranges), then 7 sequences at each length, which leave the last tile
+    part-filled (4 ranges)."""
     axes = []
     for model, (h, w) in (("", (15, 20)), ("MM-Fi ", (17, 10))):
         axes += [(f"{model}width", TRAIN_BATCH * h, w, not model),
                  (f"{model}height", TRAIN_BATCH * w, h, not model)]
+    axes += [(f"width, batch {DEFAULT_BATCH}", DEFAULT_BATCH * 15, 20, False),
+             (f"height, batch {DEFAULT_BATCH}", DEFAULT_BATCH * 20, 15,
+              False)]
     return axes + [(f"L={length}, 7 seqs", 7, length, False)
                    for length in (20, 15, 10, 17)]
 
@@ -443,6 +467,36 @@ def plain_attention():
         wiflow.axial_core, wiflow.logits_moments_fused = saved
 
 
+def host_ms(fn, runs: int = 50) -> float:
+    """Median host time of one ``fn()`` from an idle device: what a call
+    takes to check its inputs and enqueue its launches."""
+    fn()
+    times = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return statistics.median(times)
+
+
+def sums_elsewhere(tk, q, k, g):
+    """``logits_sums_forward`` on a stream of its own (a workspace of its
+    own), then captured there in a CUDA graph and replayed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        eager = tk.logits_sums_forward(q, k, g)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        replayed = tk.logits_sums_forward(q, k, g)
+    graph.replay()
+    torch.cuda.synchronize()
+    return [eager, replayed.clone()]
+
+
 def check_train_kernels(dev, c, g):
     """Phase 5.  Returns the bf16 inputs of the two main axes (for the
     timings of phase 7) and each kernel's largest bf16 error on them."""
@@ -450,13 +504,17 @@ def check_train_kernels(dev, c, g):
     from wiflow_tpu_torch.ops.kernels.build import sm_count
     log(f"phase 5: train kernels vs plain versions, batch {TRAIN_BATCH} "
         f"shapes")
+    from wiflow_tpu_torch.core.config import TrainConfig
+    assert TrainConfig().batch_size == DEFAULT_BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
     errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
     main16 = []
     for label, n, length, main in train_axes():
         plan = tk.train_attention_plan(n, length, c, g, torch.bfloat16,
                                        sm_count(0))
-        log(f"  {label}: n={n}, L={length}; axial_core's bf16 plan {plan}")
+        splan = tk.sums_plan(n, length, c, g, torch.bfloat16, sm_count(0))
+        log(f"  {label}: n={n}, L={length}; axial_core's bf16 plan {plan}; "
+            f"logits_sums' {splan}")
         qkv = torch.randn((n, length, 3 * c), generator=gen, device=dev)
         scale = torch.empty(g, device=dev).uniform_(0.25, 0.45, generator=gen)
         dout = torch.randn((n, length, c), generator=gen, device=dev)
@@ -505,6 +563,18 @@ def check_train_kernels(dev, c, g):
             e["logits_sums_bwd"] = max(
                 compare(f"logits_sums bwd dq {tag}", dq, sums32[1], tol),
                 compare(f"logits_sums bwd dk {tag}", dk, sums32[2], tol))
+            same_bits(f"logits_sums fwd {tag}, a second launch",
+                      [tk.logits_sums_forward(qt, kt, g)], [sums])
+            same_bits(f"logits_sums bwd {tag}, a second launch",
+                      tk.logits_sums_backward(qt, kt, dsums), (dq, dk))
+            log(f"  logits_sums fwd and bwd {tag}: a second launch equal bit "
+                f"for bit")
+            if main:
+                same_bits(f"logits_sums fwd {tag}, on another stream and "
+                          f"replayed from a CUDA graph",
+                          sums_elsewhere(tk, qt, kt, g), [sums, sums])
+                log(f"  logits_sums fwd {tag}: on another stream and "
+                    f"replayed from a CUDA graph, equal bit for bit")
             if dt == torch.bfloat16 and main:
                 errs = {x: max(errs[x], e[x]) for x in errs}
         if main:
@@ -675,10 +745,12 @@ KERNEL_CLASSES = (
 )
 
 
-def profile_step(step, step_ms: float, runs: int = 5, top: int = 20) -> None:
+def profile_step(step, step_ms: float, runs: int = 5, top: int = 20,
+                 what: str = "step") -> None:
     """Log the device time of ``step()`` (``torch.profiler``, per step):
     the device's busy and idle shares of the step, the time by class of
-    kernel and the largest kernels.  Only device-side kernels and copies
+    kernel and the largest kernels; the busy time and the train kernels'
+    go to ``SUMMARY`` under ``what``.  Only device-side kernels and copies
     count: the CPU ops that launch them, and the device-side spans of
     ``record_function`` annotations (``Optimizer.step``), carry the same
     time again."""
@@ -718,6 +790,9 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20) -> None:
         by_class[cls] = (t + ms, n + count)
     for cls, (ms, count) in sorted(by_class.items(), key=lambda r: -r[1][0]):
         log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {cls}")
+    ms, count = by_class.get("the port's train kernels", (0.0, 0))
+    SUMMARY.append(f"{what} {step_ms:.4f} ms, device busy {busy:.4f}, train "
+                   f"kernels {ms:.4f} x{count:g}")
     log("  largest kernels by self device time:")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {key[:90]}")
@@ -804,7 +879,7 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
     for name, ts in turns.items():
         log(f"  {name} per turn, step / enqueue ms: "
             + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
-    profile_step(kernel_step, step_ms)
+    profile_step(kernel_step, step_ms, what="stock-op step")
 
     def grad_graphs(fn, inputs):
         """Plain forward graphs to time the plain backward on."""
@@ -875,10 +950,32 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
                        "max_abs_err": errs[name], "ms": ms,
                        "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
                        "library_ms": lib_ms, "device_busy_ms": busy})
+        SUMMARY.append(f"{name} busy {busy:.4f} events {ms:.4f} ms")
     share = sum(r["ms"] for r in record)
     log(f"  the four train kernels alone: {share:.4f} ms = "
         f"{share / step_ms:.1%} of the train step")
+    sums_host_times(main16[0][0].device, c, g)
     return record
+
+
+def sums_host_times(dev, c, g):
+    """The host's time in one call of each ``logits_sums`` wrapper on the
+    bf16 thirds of a width-axis projection at batch 256: its checks, plan
+    and launch.  It uses only the wrappers' interfaces, so it times any
+    tree's: ``python3 -c "import chip_smoke as c; c.build_kernels(
+    only=['logits_sums']); c.sums_host_times(torch.device('cuda'), 64,
+    8)"``."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    n, length = TRAIN_BATCH * 15, 20
+    qkv = torch.randn((n, length, 3 * c), generator=gen, device=dev)
+    q, k, _ = qkv.to(torch.bfloat16).split(c, dim=-1)
+    d = torch.randn((2, g), generator=gen, device=dev)
+    fwd = host_ms(lambda: tk.logits_sums_forward(q, k, g))
+    bwd = host_ms(lambda: tk.logits_sums_backward(q, k, d))
+    log(f"  logits_sums wrappers, host time a call (n={n}, L={length}, "
+        f"bf16): forward {fwd:.4f} ms, backward {bwd:.4f} ms")
+    SUMMARY.append(f"logits_sums host a call fwd {fwd:.4f} bwd {bwd:.4f} ms")
 
 
 def case_label(c):
@@ -1425,7 +1522,7 @@ def fused_step_timings(stock_state, fused_state, xb, yb, record):
     for name, ts in turns.items():
         log(f"  {name} per turn, step / enqueue ms: "
             + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
-    profile_step(fused_step, fused_ms)
+    profile_step(fused_step, fused_ms, what="fused step")
 
 
 def stage_phases():
@@ -2048,6 +2145,7 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
     peak = torch.cuda.max_memory_allocated()
     mod_ms = time_ms(lambda: m["model16"](m["x"]), plain_runs)
     kernels_ms = sum(t[0] for t in mmfi_times.values())
+    SUMMARY.append(f"fast_forward_mmfi {ff_ms:.4f} ms")
     log(f"fast_forward_mmfi bf16 batch {mb}: {ff_ms:.4f} ms = "
         f"{mb / ff_ms * 1e3:.1f} frames/s; plain-torch module bf16: "
         f"{mod_ms:.4f} ms = {mb / mod_ms * 1e3:.1f} frames/s; the three "
@@ -2211,6 +2309,7 @@ def serving_phases(dev, kernels, all_kernels):
     log(f"  decoder (3x3 and 1x1 conv in torch, mean): {dec_ms:.4f} ms")
     ff_ms = time_ms(lambda: fast_forward(packed16, x32), RUNS)
     mod_ms = time_ms(lambda: model16(x32), max(3, RUNS // 4))
+    SUMMARY.append(f"fast_forward {ff_ms:.4f} ms")
     log(f"fast_forward bf16 batch {b}: {ff_ms:.4f} ms = "
         f"{b / ff_ms * 1e3:.1f} windows/s; plain-torch module bf16: "
         f"{mod_ms:.4f} ms = {b / mod_ms * 1e3:.1f} windows/s")
@@ -2276,6 +2375,7 @@ def main() -> int:
 
     log(smi)
     log(json.dumps({"kernels": record}))
+    log("summary: " + "; ".join(SUMMARY))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

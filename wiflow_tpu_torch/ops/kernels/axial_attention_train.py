@@ -10,9 +10,11 @@ standard group-major order, ``channel = g * gc + cc``):
 
 Both are ``torch.autograd.Function``s whose forward and backward are
 kernels (``csrc/axial_core.cu``, ``csrc/logits_sums.cu``, 8 channels per
-group); the backwards recompute the logits rather than save them.
+group); the backwards recompute what they need rather than save it.
 :func:`train_attention_plan` sizes the ``axial_core`` launches: tiles of
-whole sequences, threads, shared memory and a persistent grid.  The
+whole sequences, threads, shared memory and a persistent grid;
+:func:`sums_plan` the ``logits_sums`` launches, which work in the Gram form
+(linear in L): lanes a (sequence, group), tiles, a persistent grid.  The
 BatchNorm on the logits reduces to the per-group scale
 ``gamma * rsqrt(var + eps)`` (``models/wiflow.py::AxialAttention``), and
 ``logits_moments_fused`` gives the batch (mean, var) it needs from the
@@ -29,7 +31,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import Dict, List, NamedTuple, Sequence, Tuple
 
 import torch
 from torch.autograd.function import once_differentiable
@@ -51,17 +53,16 @@ CORE_BACKWARD = CudaKernel(
     replaces=f"{_TPU}:244")
 SUMS_FORWARD = CudaKernel(
     "logits_sums", "logits_sums_forward",
-    [_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P, _P],
+    [_I, _P, _P] + [_I] * 9 + [_P, _P, _P, _P],
     replaces=f"{_TPU}:354")
 SUMS_BACKWARD = CudaKernel(
     "logits_sums", "logits_sums_backward",
-    [_I, _P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    [_I, _P, _P, _I, _P, _P, _P] + [_I] * 8 + [_P],
     replaces=f"{_TPU}:373")
 KERNELS = (CORE_FORWARD, CORE_BACKWARD, SUMS_FORWARD, SUMS_BACKWARD)
 
 _GROUP_CHANNELS = 8
 _MAX_LEN = 32
-_POSITIONS_PER_BLOCK = 80     # logits_sums: whole sequences a block
 # axial_core's tiles: positions a tile, at most, forward and backward (the
 # fastest of 80, 60, 48, 40 and 30 on an H100 at both models' train shapes:
 # ``train_attention_sweep.py``)
@@ -75,6 +76,13 @@ _MAX_THREADS = 320
 _MAX_REGISTERS = 65536 // (2 * _MAX_THREADS) // 8 * 8
 _SM_SMEM = 233472             # shared memory of an SM (228 KB)
 _BLOCK_RESERVED = 1024        # of it held back for each resident block
+# logits_sums (csrc/logits_sums.cu): a block's threads; the blocks an SM
+# at the forward's and the backward's launch bounds (kForwardBlocksPerSm,
+# kBackwardBlocksPerSm); the numbers of ranges of positions a lane may
+# take, fewest first (``logits_sums_sweep.py`` times each)
+_SUMS_THREADS = 256
+_SUMS_BLOCKS_PER_SM = (3, 2)
+_SUMS_PARTS = (1, 2, 4)
 
 
 # ---------------------------------------------------------------------------
@@ -268,14 +276,105 @@ def _contiguous(t: torch.Tensor) -> torch.Tensor:
     return t.clone(memory_format=torch.contiguous_format)
 
 
-def _sums_launch(q: torch.Tensor, groups: int) -> Tuple[int, int, int, int]:
-    """(N, L, sequences a block, blocks) of a ``logits_sums`` launch."""
-    n, length, c = q.shape
-    if c != groups * _GROUP_CHANNELS:
+class SumsPlan(NamedTuple):
+    """The launches of ``csrc/logits_sums.cu``, forward and backward."""
+
+    parts: int           # ranges of positions a (sequence, group) is cut in
+    lanes: int           # lanes a (sequence, group): q and k, each range
+    gslots: int          # the groups padded to a power of two
+    seqs: int            # whole sequences a tile
+    threads: int         # a block's threads: seqs x gslots x lanes
+    tiles: int
+    grid: int            # the forward's, persistent: at most
+    #                      _SUMS_BLOCKS_PER_SM[0] x SMs; one row of fp32
+    #                      partials a block in its workspace
+    backward_grid: int   # the backward's: at most _SUMS_BLOCKS_PER_SM[1] x SMs
+
+
+def _pow2(n: int) -> int:
+    return 1 << (n - 1).bit_length()
+
+
+def _sums_tiles(nseq: int, gslots: int, parts: int) -> int:
+    return -(-nseq // (_SUMS_THREADS // (2 * parts * gslots)))
+
+
+def sums_plan_at(nseq: int, groups: int, parts: int, sms: int) -> SumsPlan:
+    """The ``logits_sums`` launches with ``parts`` ranges of positions a
+    lane (the choice :func:`sums_plan` makes; ``logits_sums_sweep.py``
+    times each)."""
+    gslots = _pow2(groups)
+    seqs = _SUMS_THREADS // (2 * parts * gslots)
+    tiles = _sums_tiles(nseq, gslots, parts)
+    fwd, bwd = (min(tiles, b * sms) for b in _SUMS_BLOCKS_PER_SM)
+    return SumsPlan(parts, 2 * parts, gslots, seqs, _SUMS_THREADS, tiles,
+                    fwd, bwd)
+
+
+@functools.lru_cache(maxsize=None)
+def sums_plan(nseq: int, length: int, c: int, groups: int,
+              dtype: torch.dtype, sms: int = SMS) -> SumsPlan:
+    """The ``logits_sums`` launches on ``nseq`` sequences of ``length``
+    positions, ``c = 8 groups`` channels.  Pure: the CPU tests hold it.
+
+    A (sequence, group) takes 2 x ``parts`` lanes, q's and k's, each over
+    one of ``parts`` ranges of its positions, summed with shuffles: the
+    fewest ranges (1, 2 or 4, at most L) at which the tiles give at least
+    half the SMs a block, else 4 (on an H100, the fastest in 23 of 24
+    cases of ``logits_sums_sweep.py``: both kernels on each axis of both
+    models at batch 256 and 64 and on 7 sequences).  A tile is the whole
+    sequences a block of 256 lanes takes, the groups padded to a power of
+    two; each grid is the blocks that fit the SMs at a kernel's launch
+    bounds, walking the tiles."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"logits_sums takes float32 or bfloat16, got {dtype}")
+    if c != groups * _GROUP_CHANNELS or not 1 <= groups <= _SUMS_THREADS // 2:
         raise ValueError(f"the kernels take {_GROUP_CHANNELS} channels per "
-                         f"group, got C={c}, G={groups}")
-    seqs = max(1, _POSITIONS_PER_BLOCK // length)
-    return n, length, seqs, -(-n // seqs)
+                         f"group and at most {_SUMS_THREADS // 2} groups, "
+                         f"got C={c}, G={groups}")
+    if not 1 <= length <= _MAX_LEN:
+        raise ValueError(f"the kernels take 1 <= L <= {_MAX_LEN}, got "
+                         f"L={length}")
+    if nseq < 1:
+        raise ValueError(f"no sequences: N={nseq}")
+    gslots = _pow2(groups)
+    most = min(1 << (length.bit_length() - 1), _SUMS_THREADS // (2 * gslots))
+    allowed = [p for p in _SUMS_PARTS if p <= most]
+    parts = next((p for p in allowed
+                  if 2 * _sums_tiles(nseq, gslots, p) >= sms), allowed[-1])
+    return sums_plan_at(nseq, groups, parts, sms)
+
+
+# The forward's workspace by (device, stream, rows, columns): fp32 partials
+# and the int32 count of blocks done, which the last block sets back to 0.
+# The launches that share one are on one stream (a train step's), so they
+# run one after another; a CUDA graph that launches the forward holds the
+# workspace of its capture stream, made by an eager call before capture,
+# and its replays must not overlap one another.
+_WORKSPACE: Dict[Tuple[int, int, int, int],
+                 Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _workspace(dev: torch.device, stream: int, rows: int, cols: int
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream, rows, cols)
+    ws = _WORKSPACE.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "logits_sums_forward: no workspace for this stream and plan; "
+                "call it once on the capture stream before capturing a CUDA "
+                "graph")
+        ws = _WORKSPACE[key] = (
+            torch.empty((rows, cols), device=dev, dtype=torch.float32),
+            torch.zeros((1,), device=dev, dtype=torch.int32))
+    return ws
+
+
+def _sums_plan(q: torch.Tensor, groups: int) -> SumsPlan:
+    n, length, c = q.shape
+    return sums_plan(n, length, c, groups, q.dtype,
+                     sm_count(q.device.index or 0))
 
 
 def _core_launch(q: torch.Tensor, scale: torch.Tensor
@@ -329,17 +428,18 @@ def axial_core_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def logits_sums_forward(q: torch.Tensor, k: torch.Tensor,
                         groups: int) -> torch.Tensor:
-    """One launch of the forward kernel (and its float64 reduction over
-    blocks): ``[2, G]`` fp32."""
+    """One launch of the forward kernel, whose last block sums the blocks'
+    partials in float64: ``[2, G]`` fp32."""
     (q, k), ld = _rows((q, k), ("q", "k"))
     dev = q.device
-    n, length, seqs, blocks = _sums_launch(q, groups)
-    partial = torch.empty((blocks, 2 * groups), device=dev,
-                          dtype=torch.float32)
+    p = _sums_plan(q, groups)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    partial, counter = _workspace(dev, stream, p.grid, 2 * groups)
     sums = torch.empty((2, groups), device=dev, dtype=torch.float32)
+    n, length, c = q.shape
     SUMS_FORWARD.launch(dtype_code(q.dtype), ptr(q), ptr(k), ld, n, length,
-                        q.shape[2], groups, seqs, ptr(partial), ptr(sums),
-                        stream_ptr(dev))
+                        c, groups, p.parts, p.seqs, p.threads, p.grid,
+                        ptr(partial), ptr(counter), ptr(sums), _P(stream))
     return sums
 
 
@@ -353,13 +453,13 @@ def logits_sums_backward(q: torch.Tensor, k: torch.Tensor,
     dsums = dsums.float().contiguous()
     check_tensor(dsums, "dsums", device=dev, dtype=torch.float32,
                  shape=(2, groups))
-    n, length, seqs, _ = _sums_launch(q, groups)
-    c = q.shape[2]
+    p = _sums_plan(q, groups)
+    n, length, c = q.shape
     dq, dk = (torch.empty((n, length, c), device=dev, dtype=dt)
               for _ in range(2))
     SUMS_BACKWARD.launch(dtype_code(dt), ptr(q), ptr(k), ld, ptr(dsums),
-                         ptr(dq), ptr(dk), n, length, c, groups, seqs,
-                         stream_ptr(dev))
+                         ptr(dq), ptr(dk), n, length, c, groups, p.parts,
+                         p.seqs, p.threads, p.backward_grid, stream_ptr(dev))
     return dq, dk
 
 

@@ -153,7 +153,9 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
 
 
 def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    """The current CUDA stream of ``device`` (a CUDA tensor's device), read
+    without building a ``torch.cuda.Stream``: a launch's host time counts."""
+    return ctypes.c_void_p(torch._C._cuda_getCurrentRawStream(device.index))
 
 
 def check_tensor(t: torch.Tensor, name: str, *, device: torch.device,
