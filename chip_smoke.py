@@ -78,11 +78,17 @@ Phases (any failure exits nonzero; nothing is caught):
    positions, which the launch plan cuts in strips: fp32 with TF32 off,
    the sums and the prologue's gradients also against float64, and bf16
    against the fp32 plain version; a second launch of each must repeat the
-   first bit for bit;
+   first bit for bit; ``join`` at all 9 joins of the step, at the MM-Fi
+   TCN's 342 and 306 channels (2-channel chunks, element masks) and at 17
+   channels with a per-sample mask; its backward also on a second stream
+   beside the default one, and two shapes that share a workspace back to
+   back, each bit-equal to its first launch;
 9. the fused training slice: the default ``ModelConfig`` with
    ``tcn_train_impl = conv_train_impl = "fused"``, trained as in phase 6
    (one step must launch ``stage`` 39 times and ``join`` 9 times, forward
-   and backward, and each attention kernel twice); one fp32 step with
+   and backward, and each attention kernel twice; in the profiler's order
+   of device kernels no ``reduce_affine_grads`` follows a join backward,
+   which sums its own partials); one fp32 step with
    dropout on, from one seed, through the fused path against the same step
    through the stock-op path, held to twice the step's fp32 rounding noise
    (measured as stock ops on the card against stock ops on the CPU); one
@@ -93,8 +99,9 @@ Phases (any failure exits nonzero; nothing is caught):
    ``F.conv1d`` / ``F.conv2d``; beside the CUDA-event time of each loop the
    host's time to enqueue it and the device's busy time in it by kernel
    (``torch.profiler``), which say whether the host or the card paces it;
-   the fused step against the stock-op step in alternating turns, and the
-   profiler's breakdown of the fused step;
+   the ``join`` launch plans, and the host's time in one call of each
+   ``join`` wrapper; the fused step against the stock-op step in
+   alternating turns, and the profiler's breakdown of the fused step;
 11. the other two lowerings of the serving attention: the v1 kernel (on a
    precomputed QKV projection, rounded to the storage type) and the
    one-launch dual kernel against their plain versions at
@@ -1128,10 +1135,18 @@ def check_stage_kernels(dev, cfg):
              pro=False, mask=None, bias=True, need_gx=True),
     ]
     join_cases = [
-        pick(joins, c=540), pick(joins, c=440),
-        pick(joins, c=8, lead=(TRAIN_BATCH, 20, 240)), pick(joins, c=64),
+        # every join of the step: 4-channel chunks at 540 and 340, 8 at
+        # the others, rows cut in slices for the backward's finish
+        *joins,
         pick(small_j, c=240), pick(small_j, c=16),
-        # the combinations the default model does not use
+        # the MM-Fi TCN's widths (2-channel chunks) with element masks
+        dict(lead=(MMFI_STAGE_BATCH, 10), c=342, mask="element",
+             res_norm=False, act_h=True),
+        dict(lead=(MMFI_STAGE_BATCH, 10), c=306, mask="element",
+             res_norm=True, act_h=True),
+        # one channel a chunk, a per-sample mask; the combinations the
+        # default model does not use
+        dict(lead=(7, 20), c=17, mask="sample", res_norm=True, act_h=True),
         dict(lead=(7, 20), c=340, mask=None, res_norm=False, act_h=False),
         dict(lead=(7, 20, 30), c=32, mask="sample", res_norm=True,
              act_h=True),
@@ -1185,13 +1200,15 @@ def check_stage_kernels(dev, cfg):
         kw = dict(keep=keep, act_h=c["act_h"])
         fn = lambda h, mh, ah, bh, res, mr, ar, br: (sk.join_plain(  # noqa: E731
             h, mh, ah, bh, i["mask"], res, mr, ar, br, **kw),)
-        leaves = (i["h"], *i["vh"], i["res"], *i["vr"])
-        (o32,), g32 = plain_grads(fn, leaves, (i["go"],), torch.float32)
-        _, g64 = plain_grads(fn, leaves, (i["go"],), torch.float64)
         main = c["lead"][0] == TRAIN_BATCH
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             tag = f"{case_label(c)}, {'fp32' if dt == torch.float32 else 'bf16'}"
             h, res, go = (i[k].to(dt) for k in ("h", "res", "go"))
+            # the references: the plain version in fp32 and float64 on the
+            # inputs the kernel is given (h, res and go as rounded to dt)
+            leaves = (h, *i["vh"], res, *i["vr"])
+            (o32,), g32 = plain_grads(fn, leaves, (go,), torch.float32)
+            _, g64 = plain_grads(fn, leaves, (go,), torch.float64)
             out = sk.join_forward(h, *i["vh"], i["mask"], res, *i["vr"], **kw)
             e = worst(f"fwd {tag}", [("out", out, o32)], tol)
             if main and dt == torch.bfloat16:
@@ -1205,7 +1222,20 @@ def check_stage_kernels(dev, cfg):
 
             got = backward()
             same_bits(f"join bwd {tag}", got, backward())
+            if c is join_cases[0] and dt == torch.bfloat16:
+                join_workspace_checks(sk, got, backward, join_cases, gen,
+                                      dev, keep)
             ref = [g32[0], *g64[1:4], g32[4], *g64[5:]]
+            if dt == torch.bfloat16:
+                # gh and gres against the kernels' rounding points; the
+                # fp32 plain version's distance logged beside it
+                plain = [(n, a, r) for n, a, r in zip(names, got, ref)
+                         if n in ("gh", "gres")]
+                ref[0], ref[4] = join_backward_rounded(c, i, h, res, go, keep)
+                log(f"  bwd {tag}: against the fp32 plain version, whose "
+                    f"forward rounds nothing, " + ", ".join(
+                        f"{n} {err_ratio(a, r):.3f}" for n, a, r in plain)
+                    + " of 2e-2 x max|ref| (not asserted)")
             e = worst(f"bwd {tag}", [
                 (n + (" vs float64" if n[:2] == "g_" else ""), a, r)
                 for n, a, r in zip(names, got, ref) if r is not None], tol)
@@ -1215,6 +1245,93 @@ def check_stage_kernels(dev, cfg):
     log("  every stage and join launch, run twice on the same inputs, gave "
         "the same bits")
     return errs
+
+
+def err_ratio(got, ref, tol=TOL_BF16):
+    """max|got - ref| over tol x max|ref|."""
+    return ((got.double() - ref.double()).abs().max()
+            / (tol * ref.double().abs().max())).item()
+
+
+def join_backward_rounded(c, i, h, res, go, keep):
+    """``(gh, gres)`` of the join backward as the kernels specify them: the
+    chain rule in fp32 on the forward's values rounded to ``h.dtype`` where
+    the forward (``join_plain`` in that dtype) rounds them, the sigmoids in
+    fp32; the reference of the bf16 check.  Against the fp32 plain version,
+    whose forward rounds nothing, a bf16 ``gh`` of this arithmetic reached
+    1.05 x 2e-2 of max|gh| at the TCN's join of 340 channels on an H100:
+    the rounding of the forward's intermediates, which the derivatives of
+    two SiLUs and the division by ``keep`` amplify."""
+    def rt(x):
+        return x.to(h.dtype).float()
+
+    def norm(x, v):
+        m, a, b = (rt(t) for t in v)
+        return rt(rt(rt(x - m) * a) + b)
+
+    def dsilu(u, sig):
+        return sig * (1 + u * (1 - sig))
+
+    mask = i["mask"]
+    if mask is not None and mask.shape != h.shape:
+        mask = mask.reshape(mask.shape[0], *([1] * (h.ndim - 2)), c["c"])
+    zero = torch.zeros((), device=h.device)
+    uh = norm(h.float(), i["vh"])
+    sig_h = torch.sigmoid(uh)
+    v = rt(uh * sig_h) if c["act_h"] else uh
+    if mask is not None:
+        v = torch.where(mask, rt(v / keep), zero)
+    r = norm(res.float(), i["vr"]) if c["res_norm"] else res.float()
+    s = rt(v + r)
+    gv = go.float() * dsilu(s, torch.sigmoid(s))
+    gres = gv * rt(i["vr"][1]) if c["res_norm"] else gv
+    gu = gv if mask is None else torch.where(mask, gv / keep, zero)
+    if c["act_h"]:
+        gu = gu * dsilu(uh, sig_h)
+    return gu * rt(i["vh"][1]), gres
+
+
+def join_backward_fn(sk, c, gen, dev, keep, dt=torch.bfloat16):
+    """One ``join_backward`` call on seeded inputs of join ``c``."""
+    i = join_inputs(c, gen, dev, keep)
+    h, res, go = (i[k].to(dt) for k in ("h", "res", "go"))
+    return lambda: list(sk.join_backward(h, *i["vh"], i["mask"], res,
+                                         *i["vr"], go, keep=keep,
+                                         act_h=c["act_h"]))
+
+
+def join_workspace_checks(sk, first, backward, cases, gen, dev, keep):
+    """The backward's workspace (partials and per-slice counters, one a
+    stream and plan): the first case's backward on a second stream while
+    the default stream runs it too, and two shapes that share a workspace
+    (the conv joins of 8 channels on 240 and 120 positions: same C, grid
+    and slices) back to back, each bit-equal to its first launch."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        on_side = backward()
+    here = backward()
+    torch.cuda.current_stream().wait_stream(side)
+    same_bits("join bwd on a second stream", first, on_side)
+    same_bits("join bwd beside a second stream", first, here)
+    a, b = (next(c for c in cases if c["c"] == 8
+                 and c["lead"] == (TRAIN_BATCH, 20, w)) for w in (240, 120))
+    pa, pb = (sk.join_plan(math.prod(c["lead"]), 8, torch.bfloat16, True)
+              for c in (a, b))
+    if (pa.grid, pa.slices) != (pb.grid, pb.slices):
+        raise AssertionError(f"the two conv joins do not share a workspace: "
+                             f"{pa} vs {pb}")
+    fa, fb = (join_backward_fn(sk, c, gen, dev, keep) for c in (a, b))
+    ra, rb = fa(), fb()
+    torch.cuda.synchronize()
+    runs = [fa(), fb(), fa(), fb()]
+    for k, got in enumerate(runs):
+        same_bits(f"join bwd back to back through one workspace, launch {k}",
+                  (ra, rb)[k % 2], got)
+    torch.cuda.synchronize()
+    log(f"  join bwd: on a second stream beside the default one, and two "
+        f"shapes back to back through one workspace ({pa.grid} partial "
+        f"rows, {pa.slices} slice), the same bits as alone")
 
 
 def fused_slice(dev, all_kernels, xs, ys):
@@ -1228,6 +1345,7 @@ def fused_slice(dev, all_kernels, xs, ys):
     state, launches = run_training(
         dev, all_kernels, cfg, xs, ys,
         {**dict.fromkeys(TRAIN_KERNELS, 2), **STAGE_LAUNCHES})
+    join_kernels_of_step(state, xs[:TRAIN_BATCH], ys[:TRAIN_BATCH])
     # One fp32 step with dropout on, from one seed (so both paths draw the
     # same masks), through the stock-op path and through the fused path.
     # The two do the same arithmetic in another order in 48 places, and the
@@ -1260,6 +1378,44 @@ def fused_slice(dev, all_kernels, xs, ys):
                                                   **FUSED), xb, yb),
                        card, tol)
     return state, launches
+
+
+def kernels_in_order(fn, runs: int = 3):
+    """The device kernels of ``runs`` calls of ``fn()`` by name, in the
+    order they started (``torch.profiler``)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(runs):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return [e.name for e in sorted(events, key=lambda e: e.time_range.start)]
+
+
+def join_kernels_of_step(state, xb, yb, runs: int = 3):
+    """A fused step's device kernels: 9 join launches each way, and no
+    float64 reduction launched after a join backward (its last blocks sum
+    the partials)."""
+    from wiflow_tpu_torch.train.steps import train_step
+    names = kernels_in_order(lambda: train_step(state, xb, yb), runs)
+    fwd, bwd = ([i for i, n in enumerate(names) if w in n]
+                for w in ("join_forward_kernel", "join_backward_kernel"))
+    after = [names[i + 1] for i in bwd if i + 1 < len(names)]
+    reductions = sum("reduce_affine_grads" in n for n in names)
+    log(f"  device kernels of {runs} fused steps (torch.profiler): join "
+        f"forward {len(fwd)}, join backward {len(bwd)}, reduce_affine_grads "
+        f"{reductions} (all after a stage backward), after a join backward: "
+        + json.dumps(sorted({re.sub(r"<.*", "", n)[:40] for n in after})))
+    if round(len(fwd) / runs) != 9 or round(len(bwd) / runs) != 9:
+        raise AssertionError(f"{len(fwd)} / {len(bwd)} join launches in "
+                             f"{runs} fused steps, expected 9 a step each")
+    if any("reduce_affine_grads" in n for n in after):
+        raise AssertionError("a reduce_affine_grads launch followed a join "
+                             "backward")
 
 
 def stage_work(c, esize):
@@ -1407,7 +1563,14 @@ def stage_kernel_timings(dev, cfg, launches, errs):
         bb, byb = bound_ms(*wb, dt)
         lib = ("" if f["lib"] is None
                else f", F.conv {time_ms(f['lib'], RUNS):.4f}")
-        path = (" [" + " / ".join(paths(c)) + "]") if "kind" in c else ""
+        if "kind" in c:
+            path = " [" + " / ".join(paths(c)) + "]"
+        else:
+            path = " [" + " / ".join(
+                "v {0.vec}, {0.slices} x {0.cols} chunks, {0.rows} rows, "
+                "grid {0.grid}".format(sk.join_plan(
+                    math.prod(c["lead"]), c["c"], dt, bwd))
+                for bwd in (False, True)) + "]"
         log(f"    {label}: fwd {time_ms(f['fwd'], RUNS):.4f} / "
             f"{time_ms(f['plain_fwd'], plain_runs):.4f} / {bf:.4f} ({byf})"
             f"{lib}; bwd {time_ms(f['bwd'], RUNS):.4f} / "
@@ -1416,7 +1579,7 @@ def stage_kernel_timings(dev, cfg, launches, errs):
             f"{device_ms(f['bwd']):.4f}{path}")
 
     # summed over the launches of one train step
-    record = []
+    record, join_busy = [], []
     for name, fns, work, key in (("stage_fwd", sfn, swork, "fwd"),
                                  ("stage_bwd", sfn, swork, "bwd"),
                                  ("join_fwd", jfn, jwork, "fwd"),
@@ -1466,6 +1629,8 @@ def stage_kernel_timings(dev, cfg, launches, errs):
                     f"busy {row['device_busy_ms_of_library_launches']:.4f}), "
                     f"F.conv {row['library_ms']:.4f} ms (device busy "
                     f"{row['library_device_busy_ms']:.4f})")
+        if name.startswith("join"):
+            join_busy.append(busy_ms)
         log(f"  {name}, the {len(fns)} launches of one step: kernel "
             f"{ms:.4f} ms (the host enqueues the loop in {enqueue_ms:.4f} "
             f"ms; the device is busy {busy_ms:.4f} ms of it), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
@@ -1477,9 +1642,34 @@ def stage_kernel_timings(dev, cfg, launches, errs):
                            kname).split("(")[0]
             log(f"    {kms:8.4f} ms x{count:g} {short[:80]}")
         record.append(row)
+    SUMMARY.append(f"join fwd / bwd device busy over the step's 9 launches "
+                   f"{join_busy[0]:.4f} / {join_busy[1]:.4f} ms")
     del sfn, jfn
     torch.cuda.empty_cache()
+    join_host_times(dev)
     return record
+
+
+def join_host_times(dev):
+    """The host's time in one call of each ``join`` wrapper at the conv
+    stack's widest join (8 channels on ``[256, 20, 240]``, bf16): its
+    checks, plan and launch.  It uses only the wrappers' interfaces, so it
+    times any tree's: ``python3 -c "import torch, chip_smoke as c;
+    c.build_kernels(only=['join_fused']); c.join_host_times(
+    torch.device('cuda'))"``."""
+    from wiflow_tpu_torch.ops.kernels import stage_fused as sk
+    gen = torch.Generator(device=dev).manual_seed(SEED + 11)
+    c = dict(lead=(TRAIN_BATCH, 20, 240), c=8, mask=None, res_norm=True,
+             act_h=False)
+    i = join_inputs(c, gen, dev, 1.0)
+    h, res, go = (i[k].to(torch.bfloat16) for k in ("h", "res", "go"))
+    fwd = host_ms(lambda: sk.join_forward(h, *i["vh"], None, res, *i["vr"],
+                                          act_h=False))
+    bwd = host_ms(lambda: sk.join_backward(h, *i["vh"], None, res, *i["vr"],
+                                           go, act_h=False))
+    log(f"  join wrappers, host time a call ({case_label(c)}, bf16): "
+        f"forward {fwd:.4f} ms, backward {bwd:.4f} ms")
+    SUMMARY.append(f"join host a call fwd {fwd:.4f} bwd {bwd:.4f} ms")
 
 
 def fused_step_timings(stock_state, fused_state, xb, yb, record):

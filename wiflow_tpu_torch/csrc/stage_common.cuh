@@ -11,9 +11,10 @@
 // mask_div positions of a sample.
 //
 // Every reduction over all positions (per-channel sums, weight gradients)
-// goes through per-block fp32 partials, summed in a fixed order, and a
-// second launch that adds the partials in float64 in a fixed order: the
-// result is the same from run to run (no atomics).
+// goes through per-block fp32 partials, summed in a fixed order, which a
+// second launch (stage_fused.cu) or the launch's last block to finish
+// (join_fused.cu) adds in float64 in a fixed order: the result is the
+// same from run to run (no float atomics).
 #pragma once
 
 #include "common.cuh"

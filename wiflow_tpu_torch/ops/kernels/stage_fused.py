@@ -47,7 +47,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -69,13 +69,13 @@ STAGE_BACKWARD = CudaKernel(
     replaces=f"{_TPU}:596")
 JOIN_FORWARD = CudaKernel(
     "join_fused", "join_forward",
-    [_I, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I,
-     _P],
+    [_I, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P] + [_I] * 8
+    + [_P],
     replaces=f"{_TPU}:839")
 JOIN_BACKWARD = CudaKernel(
     "join_fused", "join_backward",
-    [_I, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-     _I, _I, _I, _I, _P],
+    [_I, _P, _P, _P, _P, _P, _I, _F, _P, _P, _P, _P, _I] + [_P] * 6
+    + [_I] * 8 + [_P],
     replaces=f"{_TPU}:879")
 KERNELS = (STAGE_FORWARD, STAGE_BACKWARD, JOIN_FORWARD, JOIN_BACKWARD)
 
@@ -595,6 +595,106 @@ def mmfi_stage_cases(batch: int):
 
 
 # ---------------------------------------------------------------------------
+# the join's launch plan: a pure function of the shape and the dtype
+# ---------------------------------------------------------------------------
+#
+# A row of C channels is C / vec chunks, one aligned load each; a thread
+# owns one chunk for the whole launch.  A block takes ``cols`` chunks of a
+# row (its slice) and ``rows`` rows a pass, and each thread keeps the
+# copies of ``stages`` - 1 rows in flight (a ring in shared memory) while
+# it computes one.  The backward's last block of each slice sums that
+# slice's partials, one float4 a channel and block, so the backward cuts a
+# row into slices until that sum is small.
+
+_JOIN_THREADS = 256       # a block's most threads, rows x cols
+_JOIN_STAGES = 2          # the kernels' ring of rows a thread
+_JOIN_FINISH = 2048       # most float4 partials one block sums (32 KB)
+_JOIN_BACKWARD_VEC = 4    # the backward's widest chunk, in channels
+_SECTOR = 32              # bytes: a slice is at least this much of a row
+
+
+class JoinPlan(NamedTuple):
+    """One launch of ``csrc/join_fused.cu``, forward or backward."""
+    vec: int          # channels a chunk: the widest of 8, 4, 2, 1 (bf16;
+    #                   4, 2, 1 in fp32) that divides C, 16 bytes at most,
+    #                   and at most 4 in the backward
+    groups: int       # chunks a row, C / vec
+    cols: int         # chunks of a row a block takes: its slice
+    slices: int       # blocks across a row, ceil(groups / cols)
+    rows: int         # rows a pass of a block, 256 // cols
+    threads: int      # rows x cols
+    stages: int       # rows a thread has in flight, the one it computes too
+    grid: int         # blocks along the rows, persistent; the backward's
+    #                   rows of fp32 partials
+
+    def ints(self) -> Tuple[int, ...]:
+        """The C side's ``v, cols, rows, slices, stages, grid_x``."""
+        return (self.vec, self.cols, self.rows, self.slices, self.stages,
+                self.grid)
+
+
+def join_blocks_per_sm(vec: int, esize: int, backward: bool) -> int:
+    """Blocks an SM at the kernels' launch bounds: 3 where a chunk is at
+    most 8 bytes (forward) or 4 channels (backward), else 2."""
+    return 3 if (vec <= 4 if backward else vec * esize <= 8) else 2
+
+
+def _join_shape(npos: int, c: int, dtype: torch.dtype,
+                backward: bool) -> Tuple[int, int]:
+    esize = _esize(dtype)
+    if npos < 1 or c < 1 or npos * c >= 2 ** 31:
+        raise ValueError(f"join takes 1 <= positions x channels < 2^31, got "
+                         f"{npos} x {c}")
+    most = min(16 // esize, _JOIN_BACKWARD_VEC if backward else 8)
+    return esize, next(v for v in (8, 4, 2, 1) if v <= most and c % v == 0)
+
+
+def join_plan_at(npos: int, c: int, dtype: torch.dtype, backward: bool,
+                 slices: int, sms: int = _SMS) -> JoinPlan:
+    """A ``join`` launch on ``npos`` rows of ``c`` channels with each row
+    cut in (at most) ``slices`` slices."""
+    _, vec = _join_shape(npos, c, dtype, backward)
+    groups = c // vec
+    cols = _cdiv(groups, max(1, min(slices, groups)))
+    if cols * vec > _JOIN_THREADS:
+        raise ValueError(f"a slice of {cols * vec} channels is more than a "
+                         f"block's {_JOIN_THREADS}")
+    slices, rows = _cdiv(groups, cols), _JOIN_THREADS // cols
+    grid = min(_cdiv(npos, rows),
+               _cdiv(join_blocks_per_sm(vec, _esize(dtype), backward) * sms,
+                     slices))
+    return JoinPlan(vec, groups, cols, slices, rows, rows * cols,
+                    _JOIN_STAGES, grid)
+
+
+@functools.lru_cache(maxsize=None)
+def join_plan(npos: int, c: int, dtype: torch.dtype, backward: bool,
+              sms: int = _SMS) -> JoinPlan:
+    """The ``join`` forward or backward launch on ``npos`` rows of ``c``
+    channels.  Pure: the CPU tests hold it.
+
+    A persistent grid of 3 blocks an SM (2 for a forward of 16-byte
+    chunks, :func:`join_blocks_per_sm`) walks the rows, a pass of ``rows``
+    rows at a time.  A slice is at most 256 channels: the forward takes the
+    fewest slices a row (whole rows up to 256 channels), the backward the
+    fewest at which its last block of a slice sums at most 2,048 float4
+    partials, not cut below 32 bytes of a row.  The mask and the residual
+    norm are read at run time and do not change the launch."""
+    esize, vec = _join_shape(npos, c, dtype, backward)
+    groups, plan = c // vec, None
+    for slices in range(1, groups + 1):
+        cols = _cdiv(groups, slices)
+        if plan is not None and cols * vec * esize < _SECTOR:
+            break
+        if cols * vec > _JOIN_THREADS or (plan and cols == plan.cols):
+            continue
+        plan = join_plan_at(npos, c, dtype, backward, slices, sms)
+        if not backward or plan.grid * cols * vec <= _JOIN_FINISH:
+            break
+    return plan
+
+
+# ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
@@ -794,21 +894,12 @@ def stage_backward(x: torch.Tensor, m, a, b, mask, weight: torch.Tensor,
     return gx, gmab, gw, (gwb[nw:] if has_bias else None)
 
 
-def _join_launch_shape(h: torch.Tensor) -> Tuple[int, int, int, int]:
-    c = h.shape[-1]
-    npos = h.numel() // c
-    cw = 32 if c > 16 else 16 if c > 8 else 8
-    # elementwise work: twice the blocks of a product's launch
-    grid_x = min(-(-npos // (256 // cw)),
-                 max(1, 16 * _SMS // -(-c // cw)))
-    return npos, c, cw, grid_x
-
-
 def _join_args(h, m_h, a_h, b_h, mask, res, m_r, a_r, b_r):
+    """The join's operands, checked; the vectors fp32 and contiguous."""
     dev, dt = h.device, h.dtype
     c = h.shape[-1]
-    h = h.contiguous()
-    res = res.contiguous()
+    h = _aligned(h.contiguous())
+    res = _aligned(res.contiguous())
     check_tensor(res, "res", device=dev, dtype=dt, shape=h.shape)
     vh = _prologue(m_h, a_h, b_h, dev, c, "join h")
     if vh[1] is None:
@@ -818,41 +909,72 @@ def _join_args(h, m_h, a_h, b_h, mask, res, m_r, a_r, b_r):
     return h, vh, mask, div, res, vr
 
 
+# The backward's workspace by (device, stream, partial rows, channels,
+# slices): fp32 partials and an int32 count a slice of the blocks done,
+# which the last block of each slice sets back to 0.  The launches that
+# share one are on one stream (a train step's), so they run one after
+# another; a CUDA graph that launches the backward holds the workspace of
+# its capture stream, made by an eager call before capture, and its
+# replays must not overlap one another.
+_JOIN_WORKSPACE: Dict[Tuple[int, int, int, int, int],
+                      Tuple[torch.Tensor, torch.Tensor]] = {}
+
+
+def _join_workspace(dev: torch.device, stream: int, plan: JoinPlan, c: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    key = (dev.index, stream, plan.grid, c, plan.slices)
+    ws = _JOIN_WORKSPACE.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                "join_backward: no workspace for this stream and plan; call "
+                "it once on the capture stream before capturing a CUDA graph")
+        ws = _JOIN_WORKSPACE[key] = (
+            torch.empty((plan.grid, c, 4), device=dev,
+                        dtype=torch.float32),
+            torch.zeros((plan.slices,), device=dev, dtype=torch.int32))
+    return ws
+
+
 def join_forward(h: torch.Tensor, m_h, a_h, b_h, mask, res: torch.Tensor,
                  m_r=None, a_r=None, b_r=None, *, keep: float = 1.0,
                  act_h: bool = True) -> torch.Tensor:
     """One launch of the forward kernel."""
     h, vh, mask, div, res, vr = _join_args(h, m_h, a_h, b_h, mask, res, m_r,
                                            a_r, b_r)
-    npos, c, cw, grid_x = _join_launch_shape(h)
+    c = h.shape[-1]
+    plan = join_plan(h.numel() // c, c, h.dtype, False)
     out = torch.empty_like(h)
     JOIN_FORWARD.launch(dtype_code(h.dtype), ptr(h), *map(ptr, vh), ptr(mask),
                         div, keep, ptr(res), *map(ptr, vr), int(act_h),
-                        ptr(out), npos, c, cw, grid_x, stream_ptr(h.device))
+                        ptr(out), h.numel() // c, c, *plan.ints(),
+                        stream_ptr(h.device))
     return out
 
 
 def join_backward(h: torch.Tensor, m_h, a_h, b_h, mask, res: torch.Tensor,
                   m_r, a_r, b_r, go: torch.Tensor, *, keep: float = 1.0,
                   act_h: bool = True):
-    """One launch of the backward kernel (and its float64 reduction):
-    ``(gh, gres)`` in ``h.dtype`` and ``gvec [2, 3, C]`` fp32, the (g_m,
-    g_a, g_b) of the main branch and, with a residual norm, of the
-    residual branch."""
+    """One launch of the backward kernel, whose last block of each slice
+    sums the blocks' partials in float64: ``(gh, gres)`` in ``h.dtype`` and
+    ``gvec [2, 3, C]`` fp32, the (g_m, g_a, g_b) of the main branch and,
+    with a residual norm, of the residual branch."""
     h, vh, mask, div, res, vr = _join_args(h, m_h, a_h, b_h, mask, res, m_r,
                                            a_r, b_r)
-    dev = h.device
-    go = go.contiguous()
+    dev, c = h.device, h.shape[-1]
+    plan = join_plan(h.numel() // c, c, h.dtype, True)
+    go = _aligned(go.contiguous())
     check_tensor(go, "go", device=dev, dtype=h.dtype, shape=h.shape)
-    npos, c, cw, grid_x = _join_launch_shape(h)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    partial, counters = _join_workspace(dev, stream, plan, c)
     gh, gres = torch.empty_like(h), torch.empty_like(h)
-    partial = torch.empty((grid_x, 4, c), device=dev, dtype=torch.float32)
     gvec = torch.empty((2, 3, c), device=dev, dtype=torch.float32)
     JOIN_BACKWARD.launch(dtype_code(h.dtype), ptr(h), *map(ptr, vh),
                          ptr(mask), div, keep, ptr(res), *map(ptr, vr),
                          int(act_h), ptr(go), ptr(gh), ptr(gres),
-                         ptr(partial), ptr(gvec), npos, c, cw, grid_x,
-                         stream_ptr(dev))
+                         ptr(partial), ptr(counters), ptr(gvec),
+                         h.numel() // c, c, *plan.ints(),
+                         ctypes.c_void_p(stream))
     return gh, gres, gvec
 
 
