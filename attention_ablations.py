@@ -11,10 +11,25 @@ cut out, into ``wiflow_tpu_torch/build/ablations/<n>/``:
 
 * without the projection (``project_tile`` returns at once);
 * without the core, and so without its stores (``attend_tile`` returns at
-  once);
+  once); for v1 that leaves the floor of its ring: the bulk copies of
+  each tile's rows and their move into the fp32 layout;
 * without the core's stores (a store no finite input takes, so the core's
   arithmetic stays);
-* without the one-launch kernel's fetches of weights after its first.
+* without the one-launch kernel's fetches of weights after its first;
+* v1 without its loads (no bulk copies: the move and the core run on
+  what the ring holds), without its move into the fp32 layout (the core
+  runs on the tile as it lies), and without both, its staging.
+
+And v1 variants, whose outputs must equal the module's bit for bit:
+
+* its ring filled by 16-byte ``cp.async`` copies, every thread issuing a
+  share of each tile's chunks (one commit group a tile), in place of one
+  warp's bulk copies of whole rows;
+* its move with up to 8 rows' loads in flight a thread before their
+  stores;
+* the grid's second half of blocks (on an H100 the second block of each
+  SM) starting 3 us late, so that the two blocks of an SM do not reach
+  their moves together.
 
 The package's sources are not touched.  At both models' attention shapes
 (``[4096, 15, 20, 64]`` and ``[4096, 17, 10, 64]``, 8 groups) in bf16, on
@@ -49,6 +64,15 @@ SHAPES = {"flagship": (15, 20), "MM-Fi": (17, 10)}
 C, G = 64, 8
 LIBRARIES = {"v2": "KERNEL", "dual": "KERNEL_DUAL", "v1": "KERNEL_V1"}
 HEADER = "axial_attention_eval.cuh"
+V1 = "axial_attention_v1.cu"
+V1_LOADS = [
+    (V1, "  if (warp == 0 && blockIdx.x < ntiles) stage_tile(a, raw, bar, "
+     "blockIdx.x);\n", ""),
+    (V1, "    if (warp == 0 && next < ntiles) stage_tile(a, raw, bar, "
+     "next);\n", ""),
+    (V1, "    wf::mbar_wait(bar, parity);\n", "")]
+V1_MOVE = [(V1, "    settle_tile(raw, qkv, c, nvalid * len, per_row, rows, "
+            "r0, c0);\n", "")]
 # cut -> [(file of csrc/, text, replacement)]
 CUTS = {
     "without the projection": [(
@@ -68,16 +92,84 @@ CUTS = {
          "        stage_weights<T>(a.width, c, ws);\n"
          "        stage_rows(a, x + gridDim.x * sample, a1, 0);",
          "        stage_rows(a, x + gridDim.x * sample, a1, 0);")],
+    "without its loads": V1_LOADS,
+    "without its move into the fp32 layout": V1_MOVE,
+    "without its staging": V1_LOADS + V1_MOVE,
+}
+# v1 variants -> edits, each output held to the module's bits
+STAGE_CP = """// The cp.async variant of stage_tile: all threads, 16 B a copy.
+template <typename T>
+__device__ __forceinline__ void stage_cp(const V1Args<T>& a, T* raw,
+                                         int tile) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int c3 = 3 * a.c, chunks = c3 / kVec;
+  const int s0 = tile * a.seqs, nvalid = min(a.seqs, a.nseq - s0);
+  const wf::FastDiv by_chunks(chunks), by_len(a.len);
+  for (int e = threadIdx.x; e < nvalid * a.len * chunks; e += blockDim.x) {
+    const int p = by_chunks.div(e), ch = e - p * chunks;
+    const int s = by_len.div(p), l = p - s * a.len;
+    wf::cp_async16(raw + e * kVec, a.qkv + (seq_pos(a, s0 + s) +
+                                            l * a.seq_stride) * c3 +
+                                       ch * kVec);
+  }
+}
+
+// The landed raw tile"""
+VARIANTS = {
+    "with cp.async 16-byte copies in place of the bulk copies": [
+        (V1, "// The landed raw tile", STAGE_CP),
+        (V1, "if (warp == 0 && blockIdx.x < ntiles) stage_tile(a, raw, bar, "
+         "blockIdx.x);", "if (blockIdx.x < ntiles) stage_cp(a, raw, "
+         "blockIdx.x);\n  wf::cp_async_commit();"),
+        (V1, "    wf::mbar_wait(bar, parity);\n",
+         "    wf::cp_async_wait<0>();\n"),
+        (V1, "if (warp == 0 && next < ntiles) stage_tile(a, raw, bar, next);",
+         "if (next < ntiles) stage_cp(a, raw, next);\n"
+         "    wf::cp_async_commit();")],
+    "with its move 8 rows in flight a thread": [(
+        V1, """    for (int p = r0; p < npos; p += rows) {
+      const uint4 u = *reinterpret_cast<const uint4*>(raw + p * c3 + col);
+      const T* vals = reinterpret_cast<const T*>(&u);
+      float* row = qkv + p * ldq;
+#pragma unroll
+      for (int k = 0; k < kVec; k += 4)
+        *reinterpret_cast<float4*>(row + dst[k / 4]) =
+            make_float4(wf::to_f(vals[k]), wf::to_f(vals[k + 1]),
+                        wf::to_f(vals[k + 2]), wf::to_f(vals[k + 3]));
+    }""", """    for (int p0 = r0; p0 < npos; p0 += 8 * rows) {
+      uint4 u[8];
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        if (p0 + i * rows < npos)
+          u[i] = *reinterpret_cast<const uint4*>(raw + (p0 + i * rows) * c3
+                                                 + col);
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int p = p0 + i * rows;
+        if (p >= npos) break;
+        const T* vals = reinterpret_cast<const T*>(&u[i]);
+        float* row = qkv + p * ldq;
+#pragma unroll
+        for (int k = 0; k < kVec; k += 4)
+          *reinterpret_cast<float4*>(row + dst[k / 4]) =
+              make_float4(wf::to_f(vals[k]), wf::to_f(vals[k + 1]),
+                          wf::to_f(vals[k + 2]), wf::to_f(vals[k + 3]));
+      }
+    }""")],
+    "with the grid's second half of blocks starting 3 us late": [(
+        V1, "  int parity = 0;",
+        "  if (2 * blockIdx.x >= gridDim.x) __nanosleep(3000);\n"
+        "  int parity = 0;")],
 }
 
 
 def cut_builds():
-    """{cut: {lowering: CudaKernel}} for the libraries each cut changes,
-    built in parallel from edited copies of ``csrc/``."""
+    """{cut or variant: {lowering: CudaKernel}} for the libraries each
+    changes, built in parallel from edited copies of ``csrc/``."""
     root = kbuild.BUILD_DIR / "ablations"
     nvcc = kbuild._nvcc()
     procs, out = [], {}
-    for i, (cut, edits) in enumerate(CUTS.items()):
+    for i, (cut, edits) in enumerate({**CUTS, **VARIANTS}.items()):
         src = root / str(i) / "csrc"
         shutil.rmtree(src.parent, ignore_errors=True)
         shutil.copytree(kbuild.CSRC_DIR, src)
@@ -186,10 +278,17 @@ def main() -> int:
         cases = [(low, "whole", None) for low in LIBRARIES] + [
             (low, cut, k) for cut, libs in cuts.items()
             for low, k in libs.items()]
+        whole = {low: runs[low]() for low in LIBRARIES}
         times = {(low, cut): [] for low, cut, _ in cases}
-        for _ in range(ROUNDS):
+        for r in range(ROUNDS):
             for low, cut, k in cases:
                 with swapped(low, k):
+                    if r == 0 and cut in VARIANTS:
+                        same = all(torch.equal(a, b) for a, b in
+                                   zip(runs[low](), whole[low]))
+                        if not same:
+                            raise AssertionError(f"{low} {cut}: not the "
+                                                 f"module's bits")
                     times[low, cut].append(time_ms(runs[low]))
         for low, cut, k in cases:
             if k is not None and k.launches == 0:
@@ -199,6 +298,8 @@ def main() -> int:
                     + ", ".join(f"{t:.4f}" for t in times[low, cut]) + ")")
             if k is None:
                 line += f"; max error / max|plain| {errs[low]:.3e}"
+            elif cut in VARIANTS:
+                line += "; the module's bits"
             print(line, flush=True)
         del x, qkvs, mid, plain, v1_plain
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -13,10 +13,10 @@ Phases (any failure exits nonzero; nothing is caught):
    ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
    ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention``,
    ``axial_attention_dual``, ``axial_attention_v1``, ``axial_core`` and
-   ``logits_sums``: ``axial_attention``, ``axial_attention_dual`` and
-   ``logits_sums`` must list a bf16 and an fp32 kernel, the bf16 ones with
-   126, 252 and 0 ``HMMA`` (one projection on the tensor cores, two, none),
-   the fp32 ones with none;
+   ``logits_sums``: ``axial_attention``, ``axial_attention_dual``,
+   ``axial_attention_v1`` and ``logits_sums`` must list a bf16 and an fp32
+   kernel, the bf16 ones with 126, 252, 0 and 0 ``HMMA`` (one projection on
+   the tensor cores, two, none, none), the fp32 ones with none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -106,7 +106,10 @@ Phases (any failure exits nonzero; nothing is caught):
    precomputed QKV projection, rounded to the storage type) and the
    one-launch dual kernel against their plain versions at
    ``[4096, 15, 20, 64]`` and at batch 7, fp32 and bf16, the dual kernel
-   also against the v2 kernel (equal bits);
+   also against the v2 kernel (equal bits), a second v1 launch bit-equal to
+   the first; each axis's ``v1_plan`` printed, and the v1 kernel again at
+   batch 1001, whose tiles leave its persistent grid's last round
+   part-filled on both axes (batch 7's do not: a block a tile, one round);
    ``fast_forward(attention_impl="dual")`` must
    launch the dual kernel once and the v2 and v1 kernels never,
    ``attention_impl="v1"`` the v1 kernel twice, and both agree with the
@@ -196,15 +199,21 @@ STAGE_LAUNCHES = {"stage_fwd": 39, "stage_bwd": 39, "join_fwd": 9,
 FUSED = dict(tcn_train_impl="fused", conv_train_impl="fused")
 # Samples of the MM-Fi geometries that phase 8 holds (correctness only).
 MMFI_STAGE_BATCH = 33
+# A batch at which the v1 kernel's persistent grid ends in a part-filled
+# round on both axes of the flagship's attention (3754 and 4004 tiles on
+# 264 blocks in bf16, on 132 in fp32); batch 7 is not one: its 27 and 28
+# tiles take a block each, in one round.
+V1_ROUND_BATCH = 1001
 # Libraries whose tensor-core instructions phase 1 counts in the SASS, and
 # those of them whose kernels must use the tensor cores in bf16, with this
-# many HMMA (one projection, two; none in ``logits_sums``, whose products
-# are 8 x 8), and never in fp32 (no TF32), which phase 1 asserts.
+# many HMMA (one projection, two; none in ``axial_attention_v1``, whose
+# projection is outside, nor in ``logits_sums``, whose products are 8 x 8),
+# and never in fp32 (no TF32), which phase 1 asserts.
 SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
                   "axial_attention_dual", "axial_attention_v1", "axial_core",
                   "logits_sums")
 SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252,
-                "logits_sums": 0}
+                "axial_attention_v1": 0, "logits_sums": 0}
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
@@ -1231,7 +1240,8 @@ def check_stage_kernels(dev, cfg):
                 # fp32 plain version's distance logged beside it
                 plain = [(n, a, r) for n, a, r in zip(names, got, ref)
                          if n in ("gh", "gres")]
-                ref[0], ref[4] = join_backward_rounded(c, i, h, res, go, keep)
+                ref[0], ref[4] = sk.join_backward_rounded(
+                    h, *i["vh"], i["mask"], res, *i["vr"], go, **kw)
                 log(f"  bwd {tag}: against the fp32 plain version, whose "
                     f"forward rounds nothing, " + ", ".join(
                         f"{n} {err_ratio(a, r):.3f}" for n, a, r in plain)
@@ -1251,44 +1261,6 @@ def err_ratio(got, ref, tol=TOL_BF16):
     """max|got - ref| over tol x max|ref|."""
     return ((got.double() - ref.double()).abs().max()
             / (tol * ref.double().abs().max())).item()
-
-
-def join_backward_rounded(c, i, h, res, go, keep):
-    """``(gh, gres)`` of the join backward as the kernels specify them: the
-    chain rule in fp32 on the forward's values rounded to ``h.dtype`` where
-    the forward (``join_plain`` in that dtype) rounds them, the sigmoids in
-    fp32; the reference of the bf16 check.  Against the fp32 plain version,
-    whose forward rounds nothing, a bf16 ``gh`` of this arithmetic reached
-    1.05 x 2e-2 of max|gh| at the TCN's join of 340 channels on an H100:
-    the rounding of the forward's intermediates, which the derivatives of
-    two SiLUs and the division by ``keep`` amplify."""
-    def rt(x):
-        return x.to(h.dtype).float()
-
-    def norm(x, v):
-        m, a, b = (rt(t) for t in v)
-        return rt(rt(rt(x - m) * a) + b)
-
-    def dsilu(u, sig):
-        return sig * (1 + u * (1 - sig))
-
-    mask = i["mask"]
-    if mask is not None and mask.shape != h.shape:
-        mask = mask.reshape(mask.shape[0], *([1] * (h.ndim - 2)), c["c"])
-    zero = torch.zeros((), device=h.device)
-    uh = norm(h.float(), i["vh"])
-    sig_h = torch.sigmoid(uh)
-    v = rt(uh * sig_h) if c["act_h"] else uh
-    if mask is not None:
-        v = torch.where(mask, rt(v / keep), zero)
-    r = norm(res.float(), i["vr"]) if c["res_norm"] else res.float()
-    s = rt(v + r)
-    gv = go.float() * dsilu(s, torch.sigmoid(s))
-    gres = gv * rt(i["vr"][1]) if c["res_norm"] else gv
-    gu = gv if mask is None else torch.where(mask, gv / keep, zero)
-    if c["act_h"]:
-        gu = gu * dsilu(uh, sig_h)
-    return gu * rt(i["vh"][1]), gres
 
 
 def join_backward_fn(sk, c, gen, dev, keep, dt=torch.bfloat16):
@@ -2100,6 +2072,8 @@ def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
                 f"v1 {axis} axis bf16 vs fp32 plain on the same qkv, {label}",
                 got, attn_k.axial_attention_v1_plain(
                     qkv16.float(), aw16.sim, aw16.oaff, width), TOL_BF16))
+            same_bits(f"v1 {axis} axis bf16, {label}", [got], [
+                attn_k.axial_attention_v1(qkv16, aw16.sim, aw16.oaff, width)])
             x_ax16 = got
         compare(f"v1 both axes fp32, {label}",
                 attn_k.dual_axial_attention_eval_v1(a, packed32.attention),
@@ -2109,6 +2083,7 @@ def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
         if main:
             errs["axial_attention_v1"] = e
         del ref, d16, x_ax32, x_ax16, qkv32, qkv16, got
+    check_v1_rounds(a_in, packed32, packed16)
     launches = {}
     want = {"dual": {"axial_attention_dual": 1},
             "v1": {"axial_attention_v1": 2}}
@@ -2133,6 +2108,47 @@ def check_attention_variants(all_kernels, a_in, packed32, packed16, x32,
                 ref_out[:7], TOL_F32)
     torch.cuda.synchronize()
     return errs, launches
+
+
+def check_v1_rounds(a_in, packed32, packed16):
+    """Phase 11, the v1 kernel's persistent grid: each axis's ``v1_plan``
+    at batch 4096 and 7, and the kernel at a batch whose tiles leave the
+    grid's last round part-filled on both axes (some blocks walk one tile
+    more than others), fp32 and bf16 against the plain version, a second
+    launch bit-equal."""
+    from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
+    from wiflow_tpu_torch.ops.kernels.build import sm_count
+    _, h, w, c = a_in.shape
+    g = packed16.attention[0].sim.shape[1]
+    sms = sm_count(a_in.device.index or 0)
+    for batch in (a_in.shape[0], 7, V1_ROUND_BATCH):
+        for dt in (torch.bfloat16, torch.float32):
+            plan = attn_k.v1_plan(batch, h, w, c, g, dt, sms)
+            for axis, ap in zip(("width", "height"), plan):
+                # more tiles than blocks, and not a multiple of them
+                part = ap.tiles > ap.grid and ap.tiles % ap.grid > 0
+                log(f"  v1_plan batch {batch} {str(dt)[6:]} {axis}: {ap}; "
+                    f"last round part-filled: {part}")
+                if batch == V1_ROUND_BATCH and not part:
+                    raise AssertionError(f"batch {batch} fills the v1 grid's "
+                                         f"last round on the {axis} axis")
+    a = a_in[:V1_ROUND_BATCH]
+    label = f"batch {V1_ROUND_BATCH}, last round part-filled"
+    for packed, dt, tol in ((packed32, torch.float32, TOL_F32),
+                            (packed16, torch.bfloat16, TOL_BF16)):
+        x_ax = a.to(dt)
+        for aw, width in zip(packed.attention, (True, False)):
+            axis = "width" if width else "height"
+            qkv = attn_k.project_qkv_v1(x_ax, aw)
+            got = attn_k.axial_attention_v1(qkv, aw.sim, aw.oaff, width)
+            compare(f"v1 {axis} axis {str(dt)[6:]} vs fp32 plain on the "
+                    f"same qkv, {label}", got, attn_k.axial_attention_v1_plain(
+                        qkv.float(), aw.sim, aw.oaff, width), tol)
+            same_bits(f"v1 {axis} axis {str(dt)[6:]}, {label}", [got], [
+                attn_k.axial_attention_v1(qkv, aw.sim, aw.oaff, width)])
+            x_ax = got
+    torch.cuda.synchronize()
+    log("  v1: every second launch gave the same bits as the first")
 
 
 def mmfi_slice(dev, all_kernels):
@@ -2287,6 +2303,7 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
     record = []
     for name, (kern, kfn, pfn, lfn, (flops, nbytes)) in cases.items():
         ms = time_ms(kfn, RUNS)
+        SUMMARY.append(f"{name} {ms:.4f} ms")
         plain_ms = time_ms(pfn, plain_runs)
         lib_ms = time_ms(lfn, RUNS) if lfn else None
         bms, by = bound_ms(flops, nbytes, dt)
@@ -2319,6 +2336,8 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
             turns[n].append(time_ms(
                 lambda: fast_forward(packed16, x32, attention_impl=n),
                 RUNS // 2))
+    SUMMARY.append("fast_forward in turns " + ", ".join(
+        f"{n} {statistics.median(turns[n]):.4f}" for n in impls) + " ms")
     for n in impls:
         ms = statistics.median(turns[n])
         log(f"fast_forward bf16 batch {b}, attention_impl={n!r}: {ms:.4f} ms "

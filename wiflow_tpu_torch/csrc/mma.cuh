@@ -130,20 +130,31 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
         : "memory");
 }
 
-// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
-// shared memory; the barrier's phase completes when they have landed.  One
-// thread arrives for the copy.
-__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
-                                              int bytes, uint64_t* bar) {
+// Arrives on the barrier and raises the bytes its phase waits for.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
                    smem_addr(bar)),
                "r"(bytes)
                : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from device to
+// shared memory, counted against the barrier's expected bytes as they land.
+__device__ __forceinline__ void bulk_copy_tx(void* dst, const void* src,
+                                             int bytes, uint64_t* bar) {
   asm volatile(
       "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], "
       "[%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// One bulk copy; the barrier's phase completes when its bytes have landed.
+// One thread arrives for the copy.
+__device__ __forceinline__ void bulk_copy_g2s(void* dst, const void* src,
+                                              int bytes, uint64_t* bar) {
+  mbar_expect_tx(bar, bytes);
+  bulk_copy_tx(dst, src, bytes, bar);
 }
 
 }  // namespace wf

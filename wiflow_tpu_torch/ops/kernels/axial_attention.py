@@ -19,7 +19,9 @@ permutation downstream.  On a CUDA tensor each axis is one launch of
 place through a sequence stride; on a CPU tensor the plain version runs.
 The kernels that project read ``AxisWeights.wpack``, ``wq`` packed once
 by :func:`axis_weights` (bf16 in tensor-core fragment order), and
-:func:`attention_plan` sizes their launches.
+:func:`attention_plan` sizes their launches; :func:`v1_plan` sizes the v1
+kernel's (``csrc/axial_attention_v1.cu``: a persistent grid whose raw
+tile takes the next tile's qkv rows while the core runs).
 
 The three lowerings compute one function and differ in their rounding
 points in bf16.  v2 and the fused kernel keep qkv in fp32 and round the
@@ -51,8 +53,8 @@ KERNEL = CudaKernel("axial_attention", "axial_attention_forward",
                      _I, _P, _P, _P, _P, ctypes.c_size_t, _P],
                     replaces="wiflow_tpu/ops/pallas/axial_attention.py:291")
 KERNEL_V1 = CudaKernel("axial_attention_v1", "axial_attention_v1_forward",
-                       [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I,
-                        _P, _P, ctypes.c_size_t, _P],
+                       [_I, _P, _P, _I, _I, _I, _I, _I, _L, _L, _L, _I, _I,
+                        _I, _P, _P, ctypes.c_size_t, _P],
                        replaces="wiflow_tpu/ops/pallas/axial_attention.py:125")
 KERNEL_DUAL = CudaKernel("axial_attention_dual",
                          "axial_attention_dual_forward",
@@ -308,6 +310,72 @@ def attention_plan(batch: int, h: int, w: int, c: int, groups: int,
     return AttentionPlan(axes[0], axes[1], dual)
 
 
+class V1AxisPlan(NamedTuple):
+    """One launch of ``csrc/axial_attention_v1.cu`` along one axis."""
+
+    length: int          # L: positions a sequence
+    seqs: int            # whole sequences a tile
+    threads: int         # a block's threads
+    smem: int            # bytes of shared memory a block
+    layout: Tuple[int, int, int]   # bytes: the fp32 q, k, v tile; the raw
+    #                      tile (the next tile's rows in the storage type,
+    #                      in flight while the core runs); its mbarrier
+    blocks_per_sm: int
+    tiles: int
+    grid: int            # persistent: at most blocks_per_sm x SMs
+
+
+class V1Plan(NamedTuple):
+    width: V1AxisPlan
+    height: V1AxisPlan
+
+
+@functools.lru_cache(maxsize=None)
+def v1_plan(batch: int, h: int, w: int, c: int, groups: int,
+            dtype: torch.dtype, sms: int = SMS) -> V1Plan:
+    """The v1 launches on a ``qkv [batch, h, w, 3c]`` with ``groups``
+    groups of 8 channels.  Pure: the CPU tests hold it.
+
+    A tile is whole sequences, at most 80 positions (fewer where a wide C
+    would not fit); a block's threads cover the core's items of a tile (2
+    queries of one group each).  Its shared memory holds one fp32 q, k, v
+    tile in the core's layout and one raw tile (``[npos, 3C]`` in
+    ``dtype``) with its mbarrier.  The grid is the blocks that fit the SMs
+    at once, walking the tiles."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"attention takes float32 or bfloat16, got {dtype}")
+    if c != groups * _GROUP_CHANNELS:
+        raise ValueError(f"the kernel takes {_GROUP_CHANNELS} channels per "
+                         f"group, got C={c}, G={groups}")
+    if max(h, w) > _MAX_LENGTH:
+        raise ValueError(f"sequence length {max(h, w)} > {_MAX_LENGTH}")
+    esize = 2 if dtype == torch.bfloat16 else 4
+    axes = []
+    for length, nseq in ((w, batch * h), (h, batch * w)):
+
+        def fit(seqs):
+            npos = seqs * length
+            threads = _core_threads(seqs, length, groups, _MAX_THREADS)
+            layout = (npos * _qkv_row(c), npos * 3 * c * esize, 8)
+            smem = sum(layout)
+            bps = (_blocks_per_sm(smem, threads, _MAX_THREADS)
+                   if smem <= SMEM_LIMIT else 0)
+            return threads, layout, smem, bps
+
+        seqs = max(1, _MAX_POSITIONS // length)
+        while seqs > 1 and fit(seqs)[3] < 1:
+            seqs -= 1
+        threads, layout, smem, bps = fit(seqs)
+        if bps < 1:
+            raise ValueError(f"a tile of {seqs * length} positions needs "
+                             f"{smem} bytes of shared memory, more than "
+                             f"{SMEM_LIMIT}")
+        tiles = -(-nseq // seqs)
+        axes.append(V1AxisPlan(length, seqs, threads, smem, layout, bps,
+                               tiles, max(1, min(tiles, bps * sms))))
+    return V1Plan(axes[0], axes[1])
+
+
 def _launch(x: torch.Tensor, aw: AxisWeights, width: bool) -> torch.Tensor:
     b, h, w, c = x.shape
     dev, dt = x.device, x.dtype
@@ -418,7 +486,7 @@ def project_qkv_v1(x: torch.Tensor, aw: AxisWeights) -> torch.Tensor:
 
 def _as_4d(qkv: torch.Tensor) -> torch.Tensor:
     if qkv.ndim == 3:              # [N, L, 3C]: N sequences along the width
-        return qkv[None]
+        return qkv[:, None]
     if qkv.ndim == 4:
         return qkv
     raise ValueError(f"qkv is [N, L, 3C] or [B, H, W, 3C], got "
@@ -430,7 +498,7 @@ def axial_attention_v1_plain(qkv: torch.Tensor, sim: torch.Tensor,
                              width: bool = True) -> torch.Tensor:
     """Stock-torch version of the v1 kernel on a precomputed ``qkv``."""
     out = _core_plain(_as_4d(qkv), sim, oaff, width, qkv.dtype)
-    return out[0] if qkv.ndim == 3 else out
+    return out[:, 0] if qkv.ndim == 3 else out
 
 
 def _launch_v1(qkv: torch.Tensor, sim: torch.Tensor, oaff: torch.Tensor,
@@ -440,19 +508,18 @@ def _launch_v1(qkv: torch.Tensor, sim: torch.Tensor, oaff: torch.Tensor,
     dev, dt = qkv.device, qkv.dtype
     check_tensor(qkv, "qkv", device=dev, dtype=dt, shape=(b, h, w, 3 * c))
     g = _check_affines(sim, oaff, c, dev)
+    plan = v1_plan(b, h, w, c, g, dt, sm_count(dev.index or 0))
+    ap = plan.width if width else plan.height
     # strides in positions: the kernel scales them by 3C (qkv) and C (out)
     if width:      # sequences (b, h) along W
-        length, n_inner, inner, seq = w, h, w, 1
+        n_inner, inner, seq = h, w, 1
     else:          # sequences (b, w) along H, read as strided columns
-        length, n_inner, inner, seq = h, w, 1, w
-    if length > _MAX_LENGTH:
-        raise ValueError(f"sequence length {length} > {_MAX_LENGTH}")
-    seqs = _MAX_POSITIONS // length
-    smem = seqs * length * _qkv_row(c)
+        n_inner, inner, seq = w, 1, w
     out = torch.empty((b, h, w, c), dtype=dt, device=dev)
-    KERNEL_V1.launch(dtype_code(dt), ptr(qkv), ptr(out), b * n_inner, length,
-                     c, g, n_inner, inner, h * w, seq, seqs, ptr(sim),
-                     ptr(oaff), ctypes.c_size_t(smem), stream_ptr(dev))
+    KERNEL_V1.launch(dtype_code(dt), ptr(qkv), ptr(out), b * n_inner,
+                     ap.length, c, g, n_inner, inner, h * w, seq, ap.seqs,
+                     ap.threads, ap.grid, ptr(sim), ptr(oaff),
+                     ctypes.c_size_t(ap.smem), stream_ptr(dev))
     return out
 
 
@@ -467,7 +534,7 @@ def axial_attention_v1(qkv: torch.Tensor, sim: torch.Tensor,
     """
     if qkv.device.type == "cuda":
         out = _launch_v1(_as_4d(qkv), sim, oaff, width)
-        return out[0] if qkv.ndim == 3 else out
+        return out[:, 0] if qkv.ndim == 3 else out
     if qkv.device.type == "cpu":
         return axial_attention_v1_plain(qkv, sim, oaff, width)
     raise ValueError(f"axial_attention_v1 runs on cuda or cpu tensors, not "

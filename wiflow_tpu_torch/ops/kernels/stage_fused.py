@@ -764,6 +764,45 @@ def join_plain(h: torch.Tensor, m_h, a_h, b_h, mask, res: torch.Tensor,
     return _silu(v + r)
 
 
+def join_backward_rounded(h: torch.Tensor, m_h, a_h, b_h, mask,
+                          res: torch.Tensor, m_r, a_r, b_r, go: torch.Tensor,
+                          *, keep: float = 1.0, act_h: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(gh, gres)`` of :func:`join` as the kernels specify them, in fp32:
+    the chain rule in fp32 on the forward's values rounded to ``h.dtype``
+    where :func:`join_plain` in that dtype rounds them (each step of a norm,
+    the SiLU of h, the division by ``keep``, the sum), the sigmoids in fp32
+    on the rounded values, the scales ``a`` rounded.  In bf16 this is the
+    JAX package's rounding too (its Pallas ``join`` VJP); autograd of the
+    bf16 plain version rounds each intermediate of the backward as well."""
+    dt = h.dtype
+
+    def rt(x):
+        return x.to(dt).float()
+
+    def norm(x, m, a, b):
+        return rt(rt(rt(x - rt(m)) * rt(a)) + rt(b))
+
+    def dsilu(u, sig):
+        return sig * (1 + u * (1 - sig))
+
+    zero = torch.zeros((), device=h.device)
+    uh = norm(h.float(), m_h, a_h, b_h)
+    sig_h = torch.sigmoid(uh)
+    v = rt(uh * sig_h) if act_h else uh
+    if mask is not None:
+        mask = _mask_view(mask, h)
+        v = torch.where(mask, rt(v / keep), zero)
+    r = res.float() if a_r is None else norm(res.float(), m_r, a_r, b_r)
+    s = rt(v + r)
+    gv = go.float() * dsilu(s, torch.sigmoid(s))
+    gres = gv if a_r is None else gv * rt(a_r)
+    gu = gv if mask is None else torch.where(mask, gv / keep, zero)
+    if act_h:
+        gu = gu * dsilu(uh, sig_h)
+    return gu * rt(a_h), gres
+
+
 # ---------------------------------------------------------------------------
 # kernel launches (CUDA tensors only)
 # ---------------------------------------------------------------------------
