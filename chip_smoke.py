@@ -129,9 +129,33 @@ Phases (any failure exits nonzero; nothing is caught):
    under ``"v2"``, ``"dual"`` and ``"v1"`` in alternating turns;
    ``fast_forward_mmfi`` in frames/s beside the plain module, and the
    three serving kernels at the MM-Fi shapes with their bounds.
+14. the CLI on the card, in a temporary directory: ``python -m
+   wiflow_tpu_torch.cli.run --synthetic --epochs 2 --batch_size 64
+   --use_augmentation --no_videos`` as a subprocess (the flagship
+   ``ModelConfig`` at full width, bf16, on 20 synthetic files x 200
+   frames = 3,620 windows) must exit 0 and write the best weights
+   (``.pth``, ``.msgpack``), the resume bundle and the four CSVs (the PNG
+   where matplotlib imports, else its skip line); ``cli.run.main`` with
+   the same flags and ``--epochs 3`` in this process must resume at epoch
+   3, keep the first run's two history rows exactly, launch each train
+   kernel twice a step (the counters reset before and read after it) and
+   take its second, augmented step with host syncs forbidden; a run of 3
+   epochs into a second directory, never stopped, must end with the
+   resumed run's history and weights bit for bit (or, where the card
+   does not repeat itself, within twice the difference between two
+   uninterrupted runs, printed beside it); the trained ``.pth`` served by
+   ``fast_forward`` in bf16 at batch 4096 (the test split's windows,
+   repeated) must hold the plain fp32 module at ``TOL_BF16`` with an
+   output std over the batch of at least 1/100 of max|output| (3 epochs
+   do not reach it: the resumed run goes on to ``SERVE_EPOCHS`` first, and
+   says so), and the ``.msgpack`` must give the ``.pth``'s ``state_dict``
+   bit for bit;
+   seconds per epoch, training windows/s, the host's share of an epoch,
+   the seconds to write the bundle and the best weights, and the first
+   run's wall clock are printed.
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases.  The last lines are the
+run after phase 4, before the training phases; phase 14 runs last.  The last lines are the
 card's name and power limit, the kernels' JSON record (13 rows), a summary
 of the run (serving and step times, the steps' device busy time and the
 train kernels' share of it, rows 6-9's device busy and CUDA-event times,
@@ -142,6 +166,8 @@ the ``logits_sums`` wrappers' host time) and ``{"ok": true, "device":
 from __future__ import annotations
 
 import contextlib
+import csv
+import io
 import json
 import math
 import os
@@ -150,6 +176,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -219,6 +246,22 @@ SASS_OPS = ("HMMA", "HGMMA")
 # the reference over rows must be at least this share of its largest value
 # (seeded model weights give nearly one output for every row).
 MIN_SPREAD = 1e-2
+
+
+# Phase 14: the CLI's flags for the first run (2 epochs) and the rest (3),
+# the files the first run must write, and the batch of the served check.
+CLI_FLAGS = ["--synthetic", "--batch_size", "64", "--use_augmentation",
+             "--no_videos"]
+CLI_FILES = ("best_pose_model.pth", "best_pose_model.msgpack",
+             "latest_checkpoint.pkl", "training_history.csv",
+             "test_predictions.csv", "keypoint_error_stats.csv",
+             "test_results_summary.csv")
+CLI_TIMEOUT = 600
+# Epochs the resumed run is carried on to before its best weights are
+# served again when 3 leave the output's spread below the bar, as they do
+# on the H100 (``PERF.md``): the synthetic data's val MPE first
+# improves on epoch 3's well after epoch 20 at the default lr.
+SERVE_EPOCHS = 40
 
 
 # Short readings of the run, printed together just before the last line,
@@ -2556,6 +2599,287 @@ def serving_phases(dev, kernels, all_kernels):
     return record + v_record, cfg16
 
 
+class _Tee(io.TextIOBase):
+    """Writes to the real stdout and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.kept.write(text)
+        return self.out.write(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def cli_main(argv):
+    """``wiflow_tpu_torch.cli.run.main(argv)`` in this process: must return
+    0; returns what it printed."""
+    from wiflow_tpu_torch.cli import run as cli
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = cli.main(argv)
+    if rc != 0:
+        raise AssertionError(f"cli.run.main({argv}) returned {rc}")
+    return tee.kept.getvalue()
+
+
+@contextlib.contextmanager
+def watched_steps(all_kernels):
+    """Wraps ``train/steps.py::train_step`` for one run: the first step's
+    launches are read (each train kernel must launch twice), the second
+    runs with host syncs forbidden and must augment.  Yields the count of
+    steps taken."""
+    from wiflow_tpu_torch.train import steps
+    inner = steps.train_step
+    seen = {"steps": 0}
+
+    def step(*args, **kw):
+        i = seen["steps"]
+        seen["steps"] += 1
+        if i == 0:
+            before = read_launches(all_kernels)
+            m = inner(*args, **kw)
+            after = read_launches(all_kernels)
+            expect_launches("the resumed run's first step",
+                            {n: after[n] - before[n] for n in after},
+                            dict.fromkeys(TRAIN_KERNELS, 2))
+            return m
+        if i == 1:
+            if kw.get("augment") is None:
+                raise AssertionError("the resumed epoch's step does not "
+                                     "augment")
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                m = inner(*args, **kw)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            log("  one augmented train step of the resumed run ran with no "
+                "host sync (torch.cuda.set_sync_debug_mode('error'))")
+            return m
+        return inner(*args, **kw)
+
+    steps.train_step = step
+    try:
+        yield seen
+    finally:
+        steps.train_step = inner
+
+
+def csv_rows(path):
+    with open(path, newline="") as f:
+        return list(csv.reader(f))
+
+
+def run_timings(text):
+    """The ``[timings]`` line a CLI run printed."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("[timings] ")]
+    if len(lines) != 1:
+        raise AssertionError(f"{len(lines)} [timings] lines in the output")
+    return json.loads(lines[0][len("[timings] "):])
+
+
+def run_distance(a, b):
+    """The largest relative difference between two runs' output
+    directories: each history value, and each tensor of the final weights
+    in the bundle, relative to its largest entry."""
+    from wiflow_tpu_torch.core.checkpoint import load_checkpoint
+    ha, hb = (load_checkpoint(os.path.join(d, "latest_checkpoint.pkl"))
+              for d in (a, b))
+    d = 0.0
+    for key, va in ha["history"].items():
+        ref = torch.tensor(hb["history"][key], dtype=torch.float64)
+        got = torch.tensor(va, dtype=torch.float64)
+        d = max(d, ((got - ref).abs().max()
+                    / ref.abs().max().clamp(min=1e-30)).item())
+    for key, va in ha["model"].items():
+        ref, got = hb["model"][key].double(), va.double()
+        if ref.numel():
+            d = max(d, ((got - ref).abs().max()
+                        / ref.abs().max().clamp(min=1e-30)).item())
+    return d
+
+
+def same_run(a, b):
+    """Whether two runs' histories and final weights are equal bit for
+    bit."""
+    from wiflow_tpu_torch.core.checkpoint import load_checkpoint
+    ha, hb = (load_checkpoint(os.path.join(d, "latest_checkpoint.pkl"))
+              for d in (a, b))
+    return ha["history"] == hb["history"] and sorted(ha["model"]) == \
+        sorted(hb["model"]) and all(torch.equal(v, hb["model"][k])
+                                    for k, v in ha["model"].items())
+
+
+def epoch_numbers(what, timings, windows):
+    """Logs one run's seconds per epoch, training windows/s, host share
+    and write times."""
+    rates = [windows / t for t in timings["train_s"]]
+    share = [e / t for e, t in zip(timings["enqueue_s"], timings["train_s"])]
+    log(f"  {what}: seconds per epoch "
+        + ", ".join(f"{t:.3f}" for t in timings["epoch_s"])
+        + "; training windows/s "
+        + ", ".join(f"{r:.1f}" for r in rates)
+        + "; the host's share of an epoch's training (its enqueue time) "
+        + ", ".join(f"{100 * v:.1f}%" for v in share)
+        + "; bundle writes " + ", ".join(f"{t:.4f}" for t in
+                                          timings["bundle_s"])
+        + " s; best-weight writes " + ", ".join(f"{t:.4f}" for t in
+                                                timings["best_s"]) + " s")
+    return rates, share
+
+
+@torch.no_grad()
+def serve_trained(dev, all_kernels, out, data_dir):
+    """Phase 14, step 4: the best weights in ``out`` served through
+    ``fast_forward`` and held to the plain module; returns the output's std
+    over the batch and max|output|."""
+    import numpy as np
+    from wiflow_tpu_torch.core.checkpoint import load_best_model
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.data.dataset import CSIKeypointsDataset
+    from wiflow_tpu_torch.data.splits import (
+        expand_to_samples, file_level_split,
+    )
+    from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
+    from wiflow_tpu_torch.models.torch_compat import load_state_dict
+    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    sd = load_best_model(os.path.join(out, "best_pose_model.pth"))
+    from_msgpack = load_best_model(os.path.join(out,
+                                                "best_pose_model.msgpack"))
+    if not all(torch.equal(v, sd[k]) for k, v in from_msgpack.items()):
+        raise AssertionError("best_pose_model.msgpack and .pth differ")
+    log(f"  best_pose_model.msgpack gives the .pth's state_dict bit for bit "
+        f"({len(from_msgpack)} tensors)")
+    ds = CSIKeypointsDataset(data_dir)
+    test_files = file_level_split(ds.num_files, seed=42)[2]
+    x, _ = ds.materialize(expand_to_samples(ds.window_ranges, test_files))
+    n = len(x)
+    x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+    x = x.repeat(-(-BATCH // n), 1, 1)[:BATCH]
+    cfg = ModelConfig()
+    packed = pack_fast(sd, cfg, device=dev)
+    reset_launches(all_kernels)
+    out16 = fast_forward(packed, x)
+    expect_launches("fast_forward of the trained weights",
+                    read_launches(all_kernels),
+                    {"tcn_level": len(packed.tcn), "conv_stack": 1,
+                     "axial_attention": 2})
+    ref = load_state_dict(WiFlowPoseModel(ModelConfig(
+        compute_dtype="float32"), device=dev), sd)(x)
+    compare(f"trained weights: fast_forward bf16 vs module fp32, the test "
+            f"split's {n} windows repeated to {BATCH}", out16, ref, TOL_BF16)
+    spread = out16.std(dim=0).mean().item()
+    top = out16.abs().max().item()
+    log(f"  served output: std over the batch {spread:.4e} (mean over the "
+        f"{out16[0].numel()} outputs), max|output| {top:.4e}, bar "
+        f"{MIN_SPREAD * top:.4e} (1/100 of max|output|): "
+        f"{'reached' if spread >= MIN_SPREAD * top else 'NOT reached'}")
+    return spread, top
+
+
+def cli_slice(dev, all_kernels):
+    """Phase 14: train from the CLI, resume, and serve what it trained."""
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    with tempfile.TemporaryDirectory() as tmp:
+        data = os.path.join(tmp, "preprocessed_csi_data")
+        out, straight = os.path.join(tmp, "out"), os.path.join(tmp, "straight")
+        flags = [*CLI_FLAGS, "--data_dir", data]
+        cmd = [sys.executable, "-m", "wiflow_tpu_torch.cli.run", *flags,
+               "--output_dir", out, "--epochs", "2"]
+        log(f"phase 14: the CLI on the card: {' '.join(cmd[1:])}")
+        t0 = time.perf_counter()
+        first = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                               timeout=CLI_TIMEOUT)
+        wall = time.perf_counter() - t0
+        for line in first.stdout.splitlines():
+            log(f"  | {line}")
+        if first.returncode != 0:
+            raise AssertionError(f"the CLI exited {first.returncode}:\n"
+                                 f"{first.stderr[-4000:]}")
+        missing = [f for f in CLI_FILES
+                   if not os.path.exists(os.path.join(out, f))]
+        png = os.path.exists(os.path.join(out, "training_history.png"))
+        has_mpl = importlib.util.find_spec("matplotlib") is not None
+        if missing or png != has_mpl or (
+                not has_mpl and "skipped training_history.png"
+                not in first.stdout):
+            raise AssertionError(f"the CLI's files: missing {missing}, PNG "
+                                 f"{png} with matplotlib {has_mpl}")
+        log(f"  the CLI exited 0 in {wall:.2f} s and wrote "
+            + ", ".join(sorted(os.listdir(out))))
+        first_hist = csv_rows(os.path.join(out, "training_history.csv"))
+        first_t = run_timings(first.stdout)
+
+        reset_launches(all_kernels)
+        with watched_steps(all_kernels) as seen:
+            text = cli_main([*flags, "--output_dir", out, "--epochs", "3"])
+        launches = read_launches(all_kernels)
+        steps = seen["steps"]
+        expect_launches(f"the resumed run ({steps} steps)", launches,
+                        {n: 2 * steps for n in TRAIN_KERNELS})
+        if "[resume] continuing from epoch 3 of 3" not in text or \
+                "Epoch 3/3" not in text:
+            raise AssertionError("the second call did not resume at epoch 3")
+        hist = csv_rows(os.path.join(out, "training_history.csv"))
+        if len(hist) != 4 or hist[:3] != first_hist:
+            raise AssertionError("the resumed history does not keep the "
+                                 "first run's rows")
+        log("  resumed at epoch 3; history rows of epochs 1-2 equal the first "
+            "run's")
+        resumed_t = run_timings(text)
+
+        straight_t = run_timings(cli_main([*flags, "--output_dir", straight,
+                                           "--epochs", "3"]))
+        if same_run(out, straight):
+            log("  resumed run vs the run never stopped: history and final "
+                "weights equal bit for bit")
+            SUMMARY.append("resume bit-equal")
+        else:
+            again = os.path.join(tmp, "again")
+            cli_main([*flags, "--output_dir", again, "--epochs", "3"])
+            noise = run_distance(again, straight)
+            got = run_distance(out, straight)
+            log(f"  resumed run vs the run never stopped: NOT bit-equal; "
+                f"largest relative difference {got:.3e}, limit {2 * noise:.3e}"
+                f" (twice that of two runs never stopped, {noise:.3e})")
+            SUMMARY.append(f"resume within noise {got:.3e} <= {2 * noise:.3e}")
+            if not got <= 2 * noise:
+                raise AssertionError(f"resume differs by {got} > 2 x {noise}")
+
+        windows = steps * int(CLI_FLAGS[CLI_FLAGS.index("--batch_size") + 1])
+        epoch_numbers("first run (subprocess)", first_t, windows)
+        epoch_numbers("resumed run", resumed_t, windows)
+        summary_t = straight_t
+        rates, share = epoch_numbers("run never stopped", straight_t,
+                                     windows)
+        log(f"  first run's wall clock (process start, synthetic data, 2 "
+            f"epochs, artifacts): {wall:.2f} s")
+        spread, top = serve_trained(dev, all_kernels, out, data)
+        epochs = 3
+        if spread < MIN_SPREAD * top:
+            log(f"  3 epochs do not reach the spread bar: the resumed run "
+                f"goes on to {SERVE_EPOCHS} epochs and its best weights are "
+                f"served again")
+            more_t = run_timings(cli_main([*flags, "--output_dir", out,
+                                           "--epochs", str(SERVE_EPOCHS)]))
+            rates, share = epoch_numbers(f"epochs 4-{SERVE_EPOCHS}",
+                                         more_t, windows)
+            summary_t, epochs = more_t, SERVE_EPOCHS
+            spread, top = serve_trained(dev, all_kernels, out, data)
+        if not spread >= MIN_SPREAD * top:
+            raise AssertionError(f"the served output hardly varies: std "
+                                 f"{spread} < {MIN_SPREAD} x {top}")
+        SUMMARY.append(
+            f"CLI first run {wall:.2f} s, epoch median "
+            f"{statistics.median(summary_t['epoch_s']):.3f} s, "
+            f"{statistics.median(rates):.1f} windows/s, host "
+            f"{100 * statistics.median(share):.1f}%, served std after "
+            f"{epochs} epochs {spread:.3e} of max {top:.3e}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2581,6 +2905,11 @@ def main() -> int:
     fused_state, fused_launches = fused_slice(dev, all_kernels, xs, ys)
     record += fused_timings(dev, cfg16, state, fused_state, xb, yb,
                             fused_launches, stage_errs)
+    del state, fused_state, xs, ys, xb, yb
+    torch.cuda.empty_cache()
+
+    # -- phase 14: the CLI, resume, and the trained weights served ----------
+    cli_slice(dev, all_kernels)
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -66,6 +66,24 @@ def test_port_imports_no_jax_and_no_wiflow_tpu():
         assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
 
 
+# What the card's machine lacks: the port and chip_smoke.py import none of
+# them when they are imported (artifacts import matplotlib and cv2 inside
+# the functions that draw).
+HOST_ONLY = ("pandas", "matplotlib", "cv2", "msgpack")
+
+
+def test_port_imports_without_pandas_matplotlib_cv2_msgpack():
+    block = f"for name in {BLOCKED!r}:"
+    assert block in _IMPORT_ALL
+    r = _run(["-c", _IMPORT_ALL.replace(
+        block, f"for name in {BLOCKED + HOST_ONLY!r}:", 1)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    for module in ("cli.run", "cli.preprocess", "core.flax_msgpack",
+                   "data.preprocess", "data.augment", "eval.artifacts",
+                   "eval.video"):
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
+
+
 def test_chip_smoke_fails_without_cuda():
     r = _run(["chip_smoke.py"])
     assert r.returncode != 0

@@ -216,9 +216,10 @@ def test_learning_rate_and_unported_kinds():
     assert optim.get_learning_rate(opt) == 1e-4
     optim.set_learning_rate(opt, 5e-5)
     assert optim.get_learning_rate(opt) == 5e-5
-    for kind in ("adam", "sgd"):
-        with pytest.raises(NotImplementedError, match="baselines"):
-            optim.make_optimizer(OptimConfig(kind=kind), p)
+    for kind, cls in (("adam", torch.optim.Adam), ("sgd", torch.optim.SGD)):
+        assert isinstance(optim.make_optimizer(OptimConfig(kind=kind), p), cls)
+    with pytest.raises(ValueError, match="unknown optimizer kind"):
+        optim.make_optimizer(OptimConfig(kind="lion"), p)
 
 
 def test_plateau_early_stop_and_patience_match_jax():

@@ -67,4 +67,4 @@ def test_pth_round_trip(tmp_path):
         torch.testing.assert_close(sd[k], ref[k], rtol=0, atol=0)
     load_state_dict(WiFlowPoseModel(port_config(jcfg), device="cpu"), sd)
     with pytest.raises(ValueError, match="msgpack"):
-        load_best_model(str(tmp_path / "best_pose_model.msgpack"))
+        load_best_model(str(tmp_path / "best_pose_model.npz"))

@@ -1,4 +1,4 @@
-"""Configuration of the port: model, loss, optimizer and training run.
+"""Configuration of the port: data, model, loss, optimizer and training run.
 
 A copy of the fields of ``wiflow_tpu.core.config`` that the port reads,
 with the same defaults (the reference architecture and trainer, ref
@@ -12,7 +12,8 @@ kernel is, as in the reference, not a config field but the
 ``attention_impl`` argument of ``models/fast.py::fast_forward`` (``"v2"``,
 ``"dual"`` or ``"v1"``).  The others (``attention_module_impl``,
 ``rng_impl``, ``scan_epochs``,
-``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none.
+``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none, as
+has ``MeshConfig`` until multi-GPU training is ported.
 """
 
 from __future__ import annotations
@@ -30,6 +31,13 @@ SKELETON_CONNECTIONS: Tuple[Tuple[int, int], ...] = (
     (9, 10), (10, 11), (12, 13), (13, 14),
 )
 
+# Keypoint index -> name (ref config.py:37-41).
+KEYPOINT_NAMES = {
+    0: "Neck", 1: "Chest", 2: "L_Shoulder", 3: "L_Elbow", 4: "L_Wrist",
+    5: "R_Shoulder", 6: "R_Elbow", 7: "R_Wrist", 8: "Pelvis", 9: "L_Hip",
+    10: "L_Knee", 11: "L_Ankle", 12: "R_Hip", 13: "R_Knee", 14: "R_Ankle",
+}
+
 
 TRAIN_IMPLS = ("xla", "fused", "auto")
 
@@ -40,6 +48,23 @@ def use_fused(impl: str, device: torch.device) -> bool:
     if impl not in TRAIN_IMPLS:
         raise ValueError(f"train impl {impl!r}: one of {TRAIN_IMPLS}")
     return impl == "fused" or (impl == "auto" and device.type == "cuda")
+
+
+@dataclasses.dataclass(frozen=True)
+class DataConfig:
+    """Dataset and preprocessing contract (ref dataset.py)."""
+
+    data_dir: str = "preprocessed_csi_data"
+    keypoint_scale: float = 1000.0
+    window_size: int = 20
+    stride: int = 1
+    num_keypoints: int = 15
+    num_subcarriers: int = 540
+    enable_temporal_clean: bool = True      # zero-keypoint repair
+    # file-level random split ratios (ref dataset.py:269-276)
+    train_ratio: float = 0.7
+    val_ratio: float = 0.15
+    split_seed: int = 42
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,8 +119,9 @@ class LossConfig:
 class OptimConfig:
     """AdamW, global-norm clip and the LR schedules (ref train.py:105-121).
 
-    ``kind`` 'adam' and 'sgd' belong to the baselines, which are not
-    ported yet.  The plateau scheduler follows torch's
+    ``kind``: 'adamw' (the trunk), 'adam' (WiSPPN, PerUnet) or 'sgd' with
+    ``momentum`` (WPformer 0.9; HPE-Li plain SGD: momentum 0, no clip).
+    The plateau scheduler follows torch's
     ``ReduceLROnPlateau``; its patience, like the early stop's, may be
     given in optimizer steps (``plateau_patience_steps``), see
     ``train/loop.py::scaled_patience``.
@@ -106,6 +132,7 @@ class OptimConfig:
     betas: Tuple[float, float] = (0.9, 0.999)
     grad_clip_norm: Optional[float] = 1.0   # None or <= 0: no clipping
     kind: str = "adamw"
+    momentum: float = 0.9
     schedule: str = "plateau"               # | 'linear_decay' | 'multistep'
     decay_start: int = 20
     decay_end: int = 50
@@ -129,17 +156,27 @@ class TrainConfig:
     num_epochs: int = 50
     patience: int = 5                       # early stop on val MPE
     patience_steps: Optional[int] = 5 * 3937
+    # subcarrier masking, noise and scaling from the second epoch on
+    # (ref train.py:187-193)
+    use_augmentation: bool = False
     seed: int = 42
     # val/test batches are batch // 2 and drop the last partial batch
     drop_last_eval: bool = True
     optim: OptimConfig = dataclasses.field(default_factory=OptimConfig)
     loss: LossConfig = dataclasses.field(default_factory=LossConfig)
+    # storage dtype of the staged CSI on the device (labels stay fp32):
+    # 'float32' or 'bfloat16', which halves its memory
+    data_dtype: str = "float32"
+    # write the resume bundle latest_checkpoint.pkl after every epoch
+    checkpoint_every_epoch: bool = True
 
 
 @dataclasses.dataclass(frozen=True)
 class Config:
+    data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    output_dir: str = "outputs"
 
 
 def resolve_device(device=None) -> torch.device:

@@ -4,12 +4,14 @@ Counterpart of ``wiflow_tpu/metrics/metrics.py`` (ref
 utils/metrics.py:3-46): the "torso" normalizer is the distance between
 keypoints 2 and 12, clamped to at least 0.01; PCK averages over every
 keypoint of every sample at once; keypoints are in metres, so MPJPE is.
-Both return device tensors (no host sync).
+``pck_correct_fractions``, ``pck_per_keypoint`` and ``mpjpe`` return
+device tensors (no host sync); ``calculate_pck`` and ``calculate_mpjpe``
+return host floats.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Dict, Optional, Sequence
 
 import torch
 
@@ -41,8 +43,39 @@ def pck_correct_fractions(pred: torch.Tensor, target: torch.Tensor,
     return (dist[None] <= thr[:, None, None]).float().mean(dim=(1, 2))
 
 
+def calculate_pck(pred, target, thresholds: Sequence[float] = (0.2,),
+                  use_torso_norm: bool = True) -> Dict[float, float]:
+    """``{threshold: pck}`` as host floats, like the reference."""
+    fr = pck_correct_fractions(torch.as_tensor(pred), torch.as_tensor(target),
+                               thresholds, use_torso_norm)
+    return {t: float(v) for t, v in zip(thresholds, fr.tolist())}
+
+
+def pck_per_keypoint(pred: torch.Tensor, target: torch.Tensor, thr: float,
+                     scale_a: int, scale_b: int,
+                     clamp: Optional[float] = None) -> torch.Tensor:
+    """Per-keypoint PCK in percent, ``[K + 1]``: each keypoint's, then the
+    overall one (the reference's ``compute_pck_pckh`` family, ref
+    baseline/WPformer/evaluation.py:6-83).  The normalizer is the distance
+    between target keypoints ``scale_a`` and ``scale_b``, clamped below at
+    ``clamp`` where given.  Inputs are ``[B, K, D]``."""
+    pred = _as_keypoints(pred).float()
+    target = _as_keypoints(target).float()
+    scale = torch.sqrt(((target[:, scale_a] - target[:, scale_b]) ** 2)
+                       .sum(-1))
+    if clamp is not None:
+        scale = scale.clamp(min=clamp)
+    dist = torch.sqrt(((pred - target) ** 2).sum(-1)) / scale[:, None]
+    correct = (dist <= thr).float()                       # [B, K]
+    return torch.cat([100.0 * correct.mean(0), 100.0 * correct.mean()[None]])
+
+
 def mpjpe(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
     """Mean per-joint position error."""
     pred = _as_keypoints(pred).float()
     target = _as_keypoints(target).float()
     return torch.sqrt(((pred - target) ** 2).sum(-1)).mean()
+
+
+def calculate_mpjpe(pred, target) -> float:
+    return float(mpjpe(torch.as_tensor(pred), torch.as_tensor(target)))

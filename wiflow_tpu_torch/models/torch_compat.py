@@ -12,6 +12,9 @@ functions — name reshuffling and transposes only:
   (1,3) Conv2d     (3, Ci, Co)        -> (Co, Ci, 1, 3)
   1x1 Conv2d       (Ci, Co)           -> (Co, Ci, 1, 1)
   3x3 Conv2d       (3, 3, Ci, Co)     -> (Co, Ci, 3, 3)
+
+``jax_variables_from_state_dict`` goes the other way, for the
+``best_pose_model.msgpack`` the trainer writes in flax's layout.
 """
 
 from __future__ import annotations
@@ -53,6 +56,23 @@ def _conv3x3_inv(w: np.ndarray) -> np.ndarray:
 
 def _ident(w: np.ndarray) -> np.ndarray:
     return w
+
+
+def _grouped(w: np.ndarray, groups: int) -> np.ndarray:
+    co, ci_g, k = w.shape
+    return w.reshape(groups, co // groups, ci_g, k).transpose(3, 0, 2, 1)
+
+
+# torch -> flax, by the spec's flax -> torch function; the grouped conv's
+# also takes the group count
+_FORWARD: Dict[Callable, Callable[[np.ndarray, int], np.ndarray]] = {
+    _grouped_inv: _grouped,
+    _pw1d_inv: lambda w, g: w[:, :, 0].T,
+    _conv1x3_inv: lambda w, g: w[:, :, 0, :].transpose(2, 1, 0),
+    _conv1x1_inv: lambda w, g: w[:, :, 0, 0].T,
+    _conv3x3_inv: lambda w, g: w.transpose(2, 3, 1, 0),
+    _ident: lambda w, g: w,
+}
 
 
 def _bn_specs(torch_prefix: str, flax_path: Path) -> List[Spec]:
@@ -196,6 +216,31 @@ def state_dict_from_jax(variables: Mapping[str, Any],
                            f"(torch key {torch_key})") from None
         arr = np.ascontiguousarray(inv(np.asarray(leaf, np.float32)))
         out[torch_key] = torch.from_numpy(arr.copy())
+    return out
+
+
+def jax_variables_from_state_dict(
+        state_dict: Mapping[str, Any],
+        cfg: ModelConfig | MMFiModelConfig = ModelConfig()
+) -> Dict[str, Dict[str, Any]]:
+    """The port's ``state_dict`` -> the JAX ``{'params', 'batch_stats'}``
+    tree of float32 numpy arrays, the inverse of
+    :func:`state_dict_from_jax` (bit for bit).  Keys outside the spec
+    (``num_batches_tracked``) are left out; a missing key raises
+    ``KeyError`` naming it."""
+    out: Dict[str, Dict[str, Any]] = {"params": {}, "batch_stats": {}}
+    for torch_key, coll, path, inv in spec_for(cfg):
+        if torch_key not in state_dict:
+            raise KeyError(f"state_dict lacks {torch_key} "
+                           f"(JAX {coll}/{'/'.join(path)})")
+        v = state_dict[torch_key]
+        arr = (v.detach().cpu().numpy() if torch.is_tensor(v)
+               else np.asarray(v))
+        node = out[coll]
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(
+            _FORWARD[inv](arr.astype(np.float32), cfg.tcn_groups))
     return out
 
 

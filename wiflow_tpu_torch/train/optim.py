@@ -9,18 +9,20 @@ clip follows optax's ``clip_by_global_norm``: gradients are scaled by
 ``clip_grad_norm_`` adds 1e-6 to the norm and scales whenever it exceeds
 the limit).  torch's AdamW skips a parameter whose ``.grad`` is ``None``
 while optax decays every parameter, so :func:`apply_gradients` gives such
-parameters a zero gradient first.
+parameters a zero gradient first.  Frozen parameters (the JAX package's
+``frozen_subtrees``) get a zero gradient before the clip, as optax masks
+their updates before it clips, so they add nothing to the clip's norm.
 
 ``ReduceLROnPlateau``, ``EarlyStopping`` and ``epoch_schedule_lr`` are
-copies of the JAX package's host-side code, in the 'min' mode the trunk
-monitors (val MPE); the 'max' mode of the MM-Fi variant and the
-``state_dict`` methods of checkpoint resume come with those slices.
+copies of the JAX package's host-side code: mode 'min' for the trunk's val
+MPE, 'max' for the MM-Fi variant's val PCK, and ``state_dict`` /
+``load_state_dict`` for the resume bundle.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Iterable, List, Optional
+from typing import Any, Dict, Iterable, List, Optional, Sequence
 
 import torch
 
@@ -30,17 +32,19 @@ from wiflow_tpu_torch.core.config import OptimConfig
 def make_optimizer(cfg: OptimConfig,
                    params: Iterable[torch.nn.Parameter]
                    ) -> torch.optim.Optimizer:
-    """AdamW per ``cfg`` (the clip is applied by :func:`apply_gradients`).
-
-    ``kind`` 'adam' and 'sgd' serve the baselines and raise until those
-    are ported."""
+    """The optimizer of ``cfg.kind`` (the clip is applied by
+    :func:`apply_gradients`): AdamW (the trunk), Adam with no weight decay
+    (optax's ``adam``) or SGD with ``cfg.momentum`` and no weight decay
+    (optax's ``sgd``: its trace starts at the first gradient, as torch's
+    momentum buffer does)."""
     if cfg.kind == "adamw":
         return torch.optim.AdamW(params, lr=cfg.lr, betas=tuple(cfg.betas),
                                  eps=1e-8, weight_decay=cfg.weight_decay)
-    if cfg.kind in ("adam", "sgd"):
-        raise NotImplementedError(
-            f"optimizer kind {cfg.kind!r} serves the baselines, which are "
-            f"not ported yet")
+    if cfg.kind == "adam":
+        return torch.optim.Adam(params, lr=cfg.lr, betas=tuple(cfg.betas),
+                                eps=1e-8)
+    if cfg.kind == "sgd":
+        return torch.optim.SGD(params, lr=cfg.lr, momentum=cfg.momentum)
     raise ValueError(f"unknown optimizer kind {cfg.kind!r}")
 
 
@@ -63,13 +67,18 @@ def clip_by_global_norm_(grads: List[torch.Tensor],
 
 
 def apply_gradients(optimizer: torch.optim.Optimizer,
-                    grad_clip_norm: Optional[float]) -> torch.Tensor:
-    """Zero-fill missing gradients, clip (``None`` or <= 0: no clipping)
-    and take the optimizer step.  Returns the unclipped global norm."""
+                    grad_clip_norm: Optional[float],
+                    frozen: Sequence[torch.nn.Parameter] = ()
+                    ) -> torch.Tensor:
+    """Zero-fill missing gradients and those of ``frozen``, clip (``None``
+    or <= 0: no clipping) and take the optimizer step.  Returns the
+    unclipped global norm, which leaves ``frozen`` out."""
     params = [p for group in optimizer.param_groups for p in group["params"]]
     for p in params:
         if p.grad is None:
             p.grad = torch.zeros_like(p)
+    for p in frozen:
+        p.grad.zero_()
     grads = [p.grad for p in params]
     if grad_clip_norm is not None and grad_clip_norm > 0:
         norm = clip_by_global_norm_(grads, grad_clip_norm)
@@ -108,8 +117,8 @@ def epoch_schedule_lr(cfg: OptimConfig, epoch: int) -> float:
 
 @dataclasses.dataclass
 class ReduceLROnPlateau:
-    """torch ``ReduceLROnPlateau`` (mode 'min', threshold_mode 'rel') on
-    host floats."""
+    """torch ``ReduceLROnPlateau`` (threshold_mode 'rel') on host floats;
+    ``mode`` 'min' (val MPE) or 'max' (val PCK)."""
 
     lr: float
     factor: float = 0.5
@@ -118,22 +127,33 @@ class ReduceLROnPlateau:
     cooldown: int = 1
     min_lr: float = 0.0
     eps: float = 1e-8
+    mode: str = "min"
 
-    best: float = float("inf")
+    best: Optional[float] = None
     num_bad_epochs: int = 0
     cooldown_counter: int = 0
 
+    def __post_init__(self):
+        if self.best is None:
+            self.best = float("inf") if self.mode == "min" else float("-inf")
+
     @classmethod
-    def from_config(cls, cfg: OptimConfig) -> "ReduceLROnPlateau":
+    def from_config(cls, cfg: OptimConfig,
+                    mode: str = "min") -> "ReduceLROnPlateau":
         return cls(lr=cfg.lr, factor=cfg.plateau_factor,
                    patience=cfg.plateau_patience,
                    threshold=cfg.plateau_threshold,
                    cooldown=cfg.plateau_cooldown,
-                   min_lr=cfg.lr * cfg.min_lr_ratio)
+                   min_lr=cfg.lr * cfg.min_lr_ratio, mode=mode)
+
+    def _is_better(self, metric: float) -> bool:
+        if self.mode == "min":
+            return metric < self.best * (1.0 - self.threshold)
+        return metric > self.best * (1.0 + self.threshold)
 
     def step(self, metric: float) -> float:
         """Feed the epoch's val metric; returns the (possibly reduced) lr."""
-        if metric < self.best * (1.0 - self.threshold):
+        if self._is_better(metric):
             self.best = metric
             self.num_bad_epochs = 0
         else:
@@ -149,19 +169,34 @@ class ReduceLROnPlateau:
             self.num_bad_epochs = 0
         return self.lr
 
+    def state_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
+
 
 @dataclasses.dataclass
 class EarlyStopping:
-    """Strict-improvement early stop on a metric to minimize (val MPE)."""
+    """Strict-improvement early stop: ``mode`` 'min' (val MPE, ref
+    train.py:361-384) or 'max' (val PCK, the MM-Fi variant)."""
 
     patience: int = 5
-    best: float = float("inf")
+    mode: str = "min"
+    best: Optional[float] = None
     counter: int = 0
     best_epoch: int = -1
 
+    def __post_init__(self):
+        if self.best is None:
+            self.best = float("inf") if self.mode == "min" else float("-inf")
+
     def update(self, metric: float, epoch: int) -> bool:
         """Returns True when this epoch is a new best."""
-        if metric < self.best:
+        improved = (metric < self.best if self.mode == "min"
+                    else metric > self.best)
+        if improved:
             self.best = metric
             self.best_epoch = epoch
             self.counter = 0
@@ -172,3 +207,10 @@ class EarlyStopping:
     @property
     def should_stop(self) -> bool:
         return self.counter >= self.patience
+
+    def state_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        for k, v in state.items():
+            setattr(self, k, v)
