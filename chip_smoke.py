@@ -46,10 +46,12 @@ Phases (any failure exits nonzero; nothing is caught):
    MM-Fi model's (n=4352, L=10; n=2560, L=17), at the flagship's for
    ``TrainConfig``'s default batch, 64 (n=960, L=20; n=1280, L=15: the
    ``logits_sums`` kernels split a sequence's positions over 2 ranges on
-   the first, over 4 at 7 sequences), and at 7 sequences of each
-   length, which leave the last tile part-filled: fp32 with TF32 off, the
-   ``[2, G]`` sums and ``dscale`` also against float64, and bf16 against
-   the fp32 plain version; a second launch of each kernel must repeat the
+   the first, over 4 at 7 sequences), at the MM-Fi model's at that batch,
+   the MM-Fi CLI's (n=1088, L=10; n=640, L=17), and at 7 sequences of
+   each length, which leave the last tile part-filled: fp32 with TF32
+   off, the ``[2, G]`` sums and ``dscale`` also against float64, and bf16
+   against the fp32 plain version; a second launch of each kernel must
+   repeat the
    first bit for bit, and so must the ``logits_sums`` forward on another
    stream and replayed from a CUDA graph; each shape's
    ``train_attention_plan`` and
@@ -65,7 +67,8 @@ Phases (any failure exits nonzero; nothing is caught):
    kernels and through the plain versions, in alternating turns, the
    host's time to enqueue one step, and a ``torch.profiler`` breakdown of
    the step's device time; each train kernel (CUDA events, and the
-   device's busy time in it) against its plain version, its bound and
+   device's time with its calls queued behind a spin kernel) against its
+   plain version, its bound and
    ``scaled_dot_product_attention``, with ``axial_core``'s launch plan;
    the host's time in one call of each ``logits_sums`` wrapper; peak
    memory;
@@ -97,8 +100,8 @@ Phases (any failure exits nonzero; nothing is caught):
    geometry (with the path the launch plan chose), against their plain
    versions, their bounds and, where a stage is a bare convolution,
    ``F.conv1d`` / ``F.conv2d``; beside the CUDA-event time of each loop the
-   host's time to enqueue it and the device's busy time in it by kernel
-   (``torch.profiler``), which say whether the host or the card paces it;
+   host's time to enqueue it and the device's time with it queued behind
+   a spin kernel, which say whether the host or the card paces it;
    the ``join`` launch plans, and the host's time in one call of each
    ``join`` wrapper; the fused step against the stock-op step in
    alternating turns, and the profiler's breakdown of the fused step;
@@ -152,13 +155,50 @@ Phases (any failure exits nonzero; nothing is caught):
    bit for bit;
    seconds per epoch, training windows/s, the host's share of an epoch,
    the seconds to write the bundle and the best weights, and the first
-   run's wall clock are printed.
+   run's wall clock are printed;
+15. MM-Fi training on the card, in a temporary directory: (a) the port's
+   ``generate_synthetic_mmfi`` writes a learnable tree of 8 subjects x 2
+   actions x 297 frames (4,752 frames, ``.npy``; the CLI's default split
+   gives 2,673 train, 1,039 val and 1,040 test frames); (b) ``python -m
+   wiflow_tpu_torch.cli.run_mmfi --dataset_root <tree> --epochs 2
+   --batch_size 64 --lr 3e-3 --no_videos`` as a subprocess must exit 0
+   and write the best weights, the resume bundle, both ``.npz`` caches
+   and the CSVs;
+   ``cli.run_mmfi.main`` with ``--epochs 3`` in this process must resume
+   at epoch 3, keep the first two history rows exactly, launch each train
+   kernel twice a step and take its second step with host syncs
+   forbidden; a run of 3 epochs never stopped must equal it bit for bit
+   (or within twice the distance of two runs never stopped, as in phase
+   14); ``--synthetic`` on a missing root (the ``.mat`` tree) must train
+   for 1 epoch and exit 0; (c) the trained ``.pth`` served by
+   ``fast_forward_mmfi`` in bf16 at batch 4096 (the test split's frames,
+   repeated) must hold the plain fp32 ``WiFlowMMFiModel`` at ``TOL_BF16``
+   with an output std over the batch of at least 1/100 of max|output|
+   (which the CLI's default lr does not reach: hence ``MMFI_LR``), its
+   root-relative metrics on the card must match the same on the CPU, and
+   the ``.msgpack`` must
+   give the ``.pth``'s ``state_dict`` bit for bit; (d) the fused MM-Fi
+   step (``MMFiModelConfig`` with both switches ``"fused"``, bf16, dropout
+   on, batch 64) must launch ``stage`` and ``join`` each way as often as
+   ``step_launches`` says (34 and 8) and each attention train kernel
+   twice, and run a second step with no host sync; one fp32 step with
+   dropout on through the fused path is held to the stock-op step at
+   twice the step's fp32 noise, as in phase 9; every ``stage`` and
+   ``join`` launch of the step is held to its plain version as in phase
+   8; one ``train_pose_model`` epoch of the fused model on the tree; (e)
+   timings: the CLI's seconds per epoch, training frames/s and host share;
+   the stock-op and the fused MM-Fi step at batch 64 and 256 in
+   alternating turns, each with the profiler's device busy time and
+   events a step; rows 6-13 at the MM-Fi step's shapes at batch 64
+   (CUDA events, the device's time queued behind a spin, launches and
+   bound, into the ``mmfi_*`` keys of their record rows).
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases; phase 14 runs last.  The last lines are the
-card's name and power limit, the kernels' JSON record (13 rows), a summary
+run after phase 4, before the training phases; phases 14 and 15 run last.
+The last lines are the card's name and power limit, the kernels' JSON
+record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys), a summary
 of the run (serving and step times, the steps' device busy time and the
-train kernels' share of it, rows 6-9's device busy and CUDA-event times,
+train kernels' share of it, rows 6-9's queued and CUDA-event times,
 the ``logits_sums`` wrappers' host time) and ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX.
 """
@@ -262,6 +302,21 @@ CLI_TIMEOUT = 600
 # on the H100 (``PERF.md``): the synthetic data's val MPE first
 # improves on epoch 3's well after epoch 20 at the default lr.
 SERVE_EPOCHS = 40
+
+
+# Phase 15: the MM-Fi tree (subjects x actions, each a sequence of MM-Fi's
+# 297 frames: cut from MM-Fi's 40 x 27 for the script's time), the MM-Fi
+# CLI's flags, the files its first run must write, the lr of its runs (at
+# the CLI's default, 1e-4, the best weights' eval-mode output hardly
+# varies over the batch on this tree, under the served check's bar; at
+# 3e-3 they pass it after the 3 epochs that the runs take), and the
+# batches of the step timings.
+MMFI_SUBJECTS = tuple(f"S{i:02d}" for i in range(1, 9))
+MMFI_ACTIONS = ("A01", "A02")
+MMFI_CLI_FLAGS = ["--batch_size", str(DEFAULT_BATCH), "--no_videos"]
+MMFI_CLI_FILES = CLI_FILES + ("mmfi_train_cache.npz", "mmfi_val_cache.npz")
+MMFI_LR = 3e-3
+MMFI_STEP_BATCHES = (DEFAULT_BATCH, TRAIN_BATCH)
 
 
 # Short readings of the run, printed together just before the last line,
@@ -470,21 +525,27 @@ def compare_leaves(what, got, ref, tol, floor_frac):
 
 
 def train_axes():
-    """(label, sequences, length, main) of the train kernels' launches: both
-    axes of the ``[256, 15, 20, 64]`` attention input (``main``: the train
-    step's), both of the MM-Fi model's ``[256, 17, 10, 64]``, both of the
-    flagship's at ``TrainConfig``'s default batch (``DEFAULT_BATCH``; the
-    ``logits_sums`` kernels split the width axis's positions over 2
-    ranges), then 7 sequences at each length, which leave the last tile
-    part-filled (4 ranges)."""
+    """(label, sequences, length, group) of the train kernels' launches:
+    both axes of the ``[256, 15, 20, 64]`` attention input (group
+    ``"main"``: the train step's), both of the MM-Fi model's ``[256, 17,
+    10, 64]``, both of the flagship's at ``TrainConfig``'s default batch
+    (``DEFAULT_BATCH``; the ``logits_sums`` kernels split the width axis's
+    positions over 2 ranges), both of the MM-Fi model's at that batch
+    (group ``"mmfi"``: the MM-Fi CLI's step, phase 15), then 7 sequences
+    at each length, which leave the last tile part-filled (4 ranges)."""
     axes = []
     for model, (h, w) in (("", (15, 20)), ("MM-Fi ", (17, 10))):
-        axes += [(f"{model}width", TRAIN_BATCH * h, w, not model),
-                 (f"{model}height", TRAIN_BATCH * w, h, not model)]
-    axes += [(f"width, batch {DEFAULT_BATCH}", DEFAULT_BATCH * 15, 20, False),
-             (f"height, batch {DEFAULT_BATCH}", DEFAULT_BATCH * 20, 15,
-              False)]
-    return axes + [(f"L={length}, 7 seqs", 7, length, False)
+        axes += [(f"{model}width", TRAIN_BATCH * h, w,
+                  None if model else "main"),
+                 (f"{model}height", TRAIN_BATCH * w, h,
+                  None if model else "main")]
+    for model, (h, w), group in (("", (15, 20), None),
+                                 ("MM-Fi ", (17, 10), "mmfi")):
+        axes += [(f"{model}width, batch {DEFAULT_BATCH}", DEFAULT_BATCH * h,
+                  w, group),
+                 (f"{model}height, batch {DEFAULT_BATCH}", DEFAULT_BATCH * w,
+                  h, group)]
+    return axes + [(f"L={length}, 7 seqs", 7, length, None)
                    for length in (20, 15, 10, 17)]
 
 
@@ -557,8 +618,9 @@ def sums_elsewhere(tk, q, k, g):
 
 
 def check_train_kernels(dev, c, g):
-    """Phase 5.  Returns the bf16 inputs of the two main axes (for the
-    timings of phase 7) and each kernel's largest bf16 error on them."""
+    """Phase 5.  Returns, by the group of :func:`train_axes`, the bf16
+    inputs of its two axes (for the timings of phases 7 and 15) and each
+    kernel's largest bf16 error on them."""
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
     from wiflow_tpu_torch.ops.kernels.build import sm_count
     log(f"phase 5: train kernels vs plain versions, batch {TRAIN_BATCH} "
@@ -566,9 +628,11 @@ def check_train_kernels(dev, c, g):
     from wiflow_tpu_torch.core.config import TrainConfig
     assert TrainConfig().batch_size == DEFAULT_BATCH
     gen = torch.Generator(device=dev).manual_seed(SEED + 4)
-    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
-    main16 = []
-    for label, n, length, main in train_axes():
+    errs = {"main": dict.fromkeys(TRAIN_KERNELS, 0.0),
+            "mmfi": dict.fromkeys(TRAIN_KERNELS, 0.0)}
+    inputs16 = {"main": [], "mmfi": []}
+    for label, n, length, group in train_axes():
+        main = group == "main"
         plan = tk.train_attention_plan(n, length, c, g, torch.bfloat16,
                                        sm_count(0))
         splan = tk.sums_plan(n, length, c, g, torch.bfloat16, sm_count(0))
@@ -634,13 +698,14 @@ def check_train_kernels(dev, c, g):
                           sums_elsewhere(tk, qt, kt, g), [sums, sums])
                 log(f"  logits_sums fwd {tag}: on another stream and "
                     f"replayed from a CUDA graph, equal bit for bit")
-            if dt == torch.bfloat16 and main:
-                errs = {x: max(errs[x], e[x]) for x in errs}
-        if main:
-            main16.append((qkv.to(torch.bfloat16), scale,
-                           dout.to(torch.bfloat16), dsums))
+            if dt == torch.bfloat16 and group:
+                errs[group] = {x: max(v, e[x])
+                               for x, v in errs[group].items()}
+        if group:
+            inputs16[group].append((qkv.to(torch.bfloat16), scale,
+                                    dout.to(torch.bfloat16), dsums))
     torch.cuda.synchronize()
-    return main16, errs
+    return inputs16, errs
 
 
 def train_data(dev, cfg):
@@ -713,19 +778,34 @@ def run_training(dev, all_kernels, cfg, xs, ys, expect):
     return state, launches
 
 
-def fp32_step(dev, cfg, xb, yb, ctx=None):
+def seeded_state(cfg, dev, optim=None):
+    """A train state of ``cfg`` (a ``ModelConfig`` or an
+    ``MMFiModelConfig``) on ``dev`` with the weights and dropout masks of
+    ``SEED``."""
+    from wiflow_tpu_torch.core.config import ModelConfig, OptimConfig
+    from wiflow_tpu_torch.models.wiflow_mmfi import WiFlowMMFiModel
+    from wiflow_tpu_torch.train.steps import create_train_state
+    optim = optim or OptimConfig()
+    if isinstance(cfg, ModelConfig):
+        return create_train_state(cfg, optim, seed=SEED, device=dev)
+    model = WiFlowMMFiModel(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    model.dropout_generator.manual_seed(SEED)
+    return create_train_state(optim=optim, model=model)
+
+
+def fp32_step(dev, cfg, xb, yb, ctx=None, hooks=None):
     """One fp32 train step of ``cfg`` on ``dev`` with the weights and
     dropout masks of ``SEED`` (cuDNN deterministic, so that two runs differ
-    only in what is named): its metrics, every gradient leaf and every
-    running statistic."""
-    from wiflow_tpu_torch.core.config import OptimConfig
-    from wiflow_tpu_torch.train.steps import create_train_state, train_step
+    only in what is named), under ``hooks`` where given: its metrics, every
+    gradient leaf and every running statistic."""
+    from wiflow_tpu_torch.train.steps import train_step
     deterministic = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        st = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
+        st = seeded_state(cfg, dev)
         with ctx or contextlib.nullcontext():
-            m = train_step(st, xb.to(dev), yb.to(dev))
+            m = train_step(st, xb.to(dev), yb.to(dev), hooks=hooks)
     finally:
         torch.backends.cudnn.deterministic = deterministic
     return (m, {n: p.grad for n, p in st.model.named_parameters()},
@@ -783,6 +863,17 @@ def train_slice(dev, all_kernels):
     return state, xs, ys, launches
 
 
+# The clock cycles of the spin that ``queued_ms`` queues its calls behind
+# (about 50 ms at the H100's clock), and the calls it queues of a loop over
+# one step's stage or join launches: few enough that their kernels (up to
+# ~200 a call) stay well within the queue of pending launches, which the
+# host would wait on while the card spins.
+SPIN_CYCLES = 100_000_000
+LOOP_RUNS = 3
+# Calls that open ``device_ms``'s profiler window and are not counted.
+PROFILER_WARMUP = 3
+
+
 # Classes of device kernels in the train step's profile, by a word in the
 # kernel's name (first match wins).
 KERNEL_CLASSES = (
@@ -812,7 +903,9 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20,
     go to ``SUMMARY`` under ``what``.  Only device-side kernels and copies
     count: the CPU ops that launch them, and the device-side spans of
     ``record_function`` annotations (``Optimizer.step``), carry the same
-    time again."""
+    time again.  The profiler drops some launches of a few microseconds:
+    where a kernel's count over the steps is not a whole number a step,
+    the log and ``SUMMARY`` give the busy time as a lower bound."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step()
@@ -822,7 +915,7 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20,
         for _ in range(runs):
             step()
         torch.cuda.synchronize()
-    rows = []
+    rows, dropped = [], False
     for e in prof.key_averages():
         if (e.device_type == DeviceType.CPU
                 or getattr(e, "is_user_annotation", False)):
@@ -832,14 +925,18 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20,
             us = getattr(e, "self_cuda_time_total", 0)
         if us > 0:
             rows.append((us / runs / 1e3, e.count / runs, e.key))
+            dropped |= e.count % runs != 0
     if not rows:
-        log("  torch.profiler recorded no device time")
-        return
+        raise AssertionError(f"torch.profiler recorded no device time in "
+                             f"{runs} of the {what}")
     busy = sum(r[0] for r in rows)
-    log(f"  torch.profiler, {runs} steps: device busy {busy:.4f} ms per "
-        f"step = {busy / step_ms:.1%} of the {step_ms:.4f} ms step (idle "
-        f"{1 - busy / step_ms:.1%}), {sum(r[1] for r in rows):g} device "
-        f"events per step")
+    at_least = "at least " if dropped else ""
+    log(f"  torch.profiler, {runs} steps: device busy {at_least}{busy:.4f} "
+        f"ms per step = {busy / step_ms:.1%} of the {step_ms:.4f} ms step "
+        f"(idle {'at most ' if dropped else ''}{1 - busy / step_ms:.1%}), "
+        f"{sum(r[1] for r in rows):g} device events per step"
+        + ("; some launches dropped (a kernel's count is not whole a step)"
+           if dropped else ""))
     by_class = {}
     for ms, count, key in rows:
         name = key.lower()
@@ -850,53 +947,89 @@ def profile_step(step, step_ms: float, runs: int = 5, top: int = 20,
     for cls, (ms, count) in sorted(by_class.items(), key=lambda r: -r[1][0]):
         log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {cls}")
     ms, count = by_class.get("the port's train kernels", (0.0, 0))
-    SUMMARY.append(f"{what} {step_ms:.4f} ms, device busy {busy:.4f}, train "
-                   f"kernels {ms:.4f} x{count:g}")
+    SUMMARY.append(f"{what} {step_ms:.4f} ms, device busy {at_least}"
+                   f"{busy:.4f}, train kernels {ms:.4f} x{count:g}")
     log("  largest kernels by self device time:")
     for ms, count, key in sorted(rows, reverse=True)[:top]:
         log(f"    {ms:8.4f} ms {ms / busy:6.1%} x{count:g} {key[:90]}")
 
 
-def device_ms(fn, runs: int = 10, by_kernel=None) -> float:
+def device_ms(fn, runs: int = 10) -> float:
     """The device's busy time in one ``fn()``: the sum of its kernels'
-    durations (``torch.profiler``).  Unlike a CUDA-event timing it does not
-    count the gaps that a slow host leaves between launches.  The profiler
-    loses some of the first events of a short window, so a kernel counts
-    with its mean duration times its launches per call, rounded from what
-    was seen over ``runs`` calls.  ``by_kernel``, a dict, gets ``(ms,
-    launches)`` per call by kernel name."""
+    durations (``torch.profiler``), for the sweep scripts that time one
+    design against another (``join_sweep.py``, ``logits_sums_sweep.py``,
+    ``train_attention_sweep.py``); this script reads ``queued_ms``.  The
+    profiler drops launches of a few microseconds, so a reading is
+    refused where it recorded no kernel, or a kernel a number of times
+    that is not whole a call.  The window opens with ``PROFILER_WARMUP``
+    calls that are not counted."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(runs):
+    seen = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=PROFILER_WARMUP,
+                                   active=runs),
+                 on_trace_ready=lambda p: seen.append(p.key_averages())
+                 ) as prof:
+        for _ in range(PROFILER_WARMUP + runs):
             fn()
-        torch.cuda.synchronize()
-    total = 0.0
-    for e in prof.key_averages():
+            torch.cuda.synchronize()
+            prof.step()
+    times = []
+    for e in seen[0]:
         if (e.device_type == DeviceType.CPU
                 or getattr(e, "is_user_annotation", False)):
             continue
         us = getattr(e, "self_device_time_total", None)
         us = getattr(e, "self_cuda_time_total", 0) if us is None else us
-        if us <= 0 or e.count < 1:
+        if us <= 0:
             continue
-        launches = max(1, round(e.count / runs))
-        ms = us / e.count * launches / 1e3
-        total += ms
-        if by_kernel is not None:
-            by_kernel[e.key] = (ms, launches)
-    return total
+        if e.count % runs:
+            raise AssertionError(f"torch.profiler recorded {e.key[:60]} "
+                                 f"{e.count} times in {runs} calls: it "
+                                 f"dropped launches")
+        times.append(us / runs / 1e3)
+    if not times:
+        raise AssertionError("torch.profiler recorded no kernel")
+    return sum(times)
+
+
+def queued_ms(fn, runs: int = 50) -> float:
+    """The device's time for one ``fn()`` from CUDA events around ``runs``
+    calls queued behind a spin kernel (``torch.cuda._sleep``): the host
+    enqueues them while the card spins, so the card runs them back to back
+    and the events read its time, not the host's pace.  A spin too short
+    for the host's enqueue is doubled and the reading taken again.  This
+    is the script's device time of a kernel: ``torch.profiler`` drops
+    launches of a few microseconds (none of the MM-Fi step's train-kernel
+    launches were recorded in some windows), and a sum over the launches
+    it kept reads low."""
+    fn()
+    torch.cuda.synchronize()
+    for spin_cycles in (SPIN_CYCLES, 2 * SPIN_CYCLES, 4 * SPIN_CYCLES):
+        s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        s.record()
+        torch.cuda._sleep(spin_cycles)
+        a.record()
+        t0 = time.perf_counter()
+        for _ in range(runs):
+            fn()
+        enqueue = (time.perf_counter() - t0) * 1e3
+        b.record()
+        b.synchronize()
+        if enqueue < s.elapsed_time(a):
+            return a.elapsed_time(b) / runs
+    raise AssertionError(f"the host took {enqueue:.3f} ms to enqueue {runs} "
+                         f"calls, longer than a spin of {spin_cycles} cycles")
 
 
 def train_timings(state, xb, yb, main16, c, g, launches, errs):
     """Phase 7: the train step, then each train kernel alone (both axes,
     as one train step launches it) against its plain version, its bound
     and, for ``axial_core``, ``scaled_dot_product_attention``."""
-    import torch.nn.functional as F
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
-    from wiflow_tpu_torch.ops.kernels.build import sm_count
     from wiflow_tpu_torch.train.steps import train_step
     log(f"phase 7: train timings (CUDA events, median of {RUNS})")
 
@@ -940,6 +1073,35 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
             + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
     profile_step(kernel_step, step_ms, what="stock-op step")
 
+    times = train_kernel_times(main16, c, g)
+    record = []
+    for name, t in times.items():
+        kern = getattr(tk, KERNEL_ATTRS[name])
+        record.append({"name": name, "route": "cuda", "source": kern.source,
+                       "replaces": kern.replaces, "launches": launches[name],
+                       "max_abs_err": errs[name], "ms": t["ms"],
+                       "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                       "bound_by": t["bound_by"],
+                       "library_ms": t["library_ms"],
+                       "device_queued_ms": t["device_queued_ms"]})
+        SUMMARY.append(f"{name} queued {t['device_queued_ms']:.4f} events "
+                       f"{t['ms']:.4f} ms")
+    share = sum(r["ms"] for r in record)
+    log(f"  the four train kernels alone: {share:.4f} ms = "
+        f"{share / step_ms:.1%} of the train step")
+    sums_host_times(main16[0][0].device, c, g)
+    return record
+
+
+def train_kernel_times(inputs16, c, g):
+    """Each train kernel over the bf16 inputs of both axes (as one train
+    step launches it): CUDA events and the device's time (``queued_ms``),
+    its bound, its plain version and, for ``axial_core``,
+    ``scaled_dot_product_attention``.  Returns a dict by kernel name."""
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.ops.kernels import axial_attention_train as tk
+    from wiflow_tpu_torch.ops.kernels.build import sm_count
+
     def grad_graphs(fn, inputs):
         """Plain forward graphs to time the plain backward on."""
         graphs = []
@@ -949,9 +1111,9 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
         return lambda: [torch.autograd.grad(o, lv, d, retain_graph=True)
                         for o, lv, d in graphs]
 
-    core = [((*qkv.split(c, dim=-1), s), d) for qkv, s, d, _ in main16]
+    core = [((*qkv.split(c, dim=-1), s), d) for qkv, s, d, _ in inputs16]
     pairs = [(tuple(qkv.split(c, dim=-1)[:2]), ds)
-             for qkv, _, _, ds in main16]
+             for qkv, _, _, ds in inputs16]
     heads, grads = [], []
     for (q, k, v, s), d in core:
         n, length, _ = q.shape
@@ -977,7 +1139,8 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
                      for qh, kh, vh, _ in heads]),
         "axial_core_bwd": (
             lambda: [tk.axial_core_backward(*a, d) for a, d in core],
-            grad_graphs(tk.axial_core_plain, core), sdpa_fwd_bwd),
+            grad_graphs(tk.axial_core_plain, core),
+            sdpa_fwd_bwd),
         "logits_sums_fwd": (
             lambda: [tk.logits_sums_forward(*a, g) for a, _ in pairs],
             lambda: [sums_fn(*a) for a, _ in pairs], None),
@@ -985,36 +1148,29 @@ def train_timings(state, xb, yb, main16, c, g, launches, errs):
             lambda: [tk.logits_sums_backward(*a, d) for a, d in pairs],
             grad_graphs(sums_fn, pairs), None),
     }
-    shapes = [(qkv.shape[0], qkv.shape[1]) for qkv, *_ in main16]
+    shapes = [(qkv.shape[0], qkv.shape[1]) for qkv, *_ in inputs16]
     for n, length in shapes:
         plan = tk.train_attention_plan(n, length, c, g, torch.bfloat16,
                                        sm_count(0))
         log(f"  axial_core's plan, n={n}, L={length}: {plan}")
-    record = []
+    times = {}
     for name, (kfn, pfn, lfn) in cases.items():
         ms = time_ms(kfn, RUNS)
-        busy = device_ms(kfn)
+        queued = queued_ms(kfn)
         plain_ms = time_ms(pfn, max(3, RUNS // 4))
         lib_ms = time_ms(lfn, RUNS) if lfn else None
         flops, nbytes = train_work(name, shapes, c, g, 2)
         bms, by = bound_ms(flops, nbytes, torch.bfloat16)
-        lib = "n/a" if lib_ms is None else f"{lib_ms:.4f} ms"
-        log(f"  {name} (both axes): kernel {ms:.4f} ms (device busy "
-            f"{busy:.4f} ms), plain {plain_ms:.4f} ms, "
-            f"scaled_dot_product_attention {lib}, bound {bms:.4f} ms ({by}; "
-            f"{flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB)")
-        kern = getattr(tk, KERNEL_ATTRS[name])
-        record.append({"name": name, "route": "cuda", "source": kern.source,
-                       "replaces": kern.replaces, "launches": launches[name],
-                       "max_abs_err": errs[name], "ms": ms,
-                       "plain_ms": plain_ms, "bound_ms": bms, "bound_by": by,
-                       "library_ms": lib_ms, "device_busy_ms": busy})
-        SUMMARY.append(f"{name} busy {busy:.4f} events {ms:.4f} ms")
-    share = sum(r["ms"] for r in record)
-    log(f"  the four train kernels alone: {share:.4f} ms = "
-        f"{share / step_ms:.1%} of the train step")
-    sums_host_times(main16[0][0].device, c, g)
-    return record
+        log(f"  {name} (both axes): kernel {ms:.4f} ms (queued behind a spin "
+            f"{queued:.4f} ms), plain {plain_ms:.4f} ms, "
+            f"scaled_dot_product_attention "
+            + ("n/a" if lib_ms is None else f"{lib_ms:.4f} ms")
+            + f", bound {bms:.4f} ms ({by}; {flops / 1e9:.3f} GFLOP, "
+            f"{nbytes / 1e9:.4f} GB)")
+        times[name] = {"ms": ms, "device_queued_ms": queued,
+                       "plain_ms": plain_ms,
+                       "library_ms": lib_ms, "bound_ms": bms, "bound_by": by}
+    return times
 
 
 def sums_host_times(dev, c, g):
@@ -1205,8 +1361,25 @@ def check_stage_kernels(dev, cfg):
     ]
     gen = torch.Generator(device=dev).manual_seed(SEED + 8)
     errs = dict.fromkeys(STAGE_ATTRS, 0.0)
+    hold_stages(sk, stage_cases, gen, dev, keep, errs, TRAIN_BATCH)
+    hold_joins(sk, join_cases, gen, dev, keep, errs, TRAIN_BATCH,
+               workspace_checks=True)
+    torch.cuda.synchronize()
+    log("  every stage and join launch, run twice on the same inputs, gave "
+        "the same bits")
+    return errs
+
+
+def hold_stages(sk, cases, gen, dev, keep, errs, main_batch):
+    """Each ``stage`` launch of ``cases``, forward and backward, against its
+    plain version on seeded inputs: fp32 with TF32 off, the sums and the
+    prologue's gradients also against float64, and bf16 against the fp32
+    plain version; a second launch must repeat the first bit for bit.
+    ``errs`` keeps the largest bf16 error of the launches at
+    ``main_batch`` samples: of ``out`` forward, of the input gradient
+    backward."""
     names = ("gx", "g_m", "g_a", "g_b", "gw", "gbias")
-    for c in stage_cases:
+    for c in cases:
         i = stage_inputs(c, gen, dev, keep)
         kw = dict(kind=c["kind"], dil=c["dil"], keep=keep)
         fn = lambda x, m, a, b, w, bias: sk.stage_plain(  # noqa: E731
@@ -1215,7 +1388,7 @@ def check_stage_kernels(dev, cfg):
         cots = (i["go"], i["gs"])
         (o32, s32), g32 = plain_grads(fn, leaves, cots, torch.float32)
         (_, s64), g64 = plain_grads(fn, leaves, cots, torch.float64)
-        main = c["lead"][0] == TRAIN_BATCH
+        main = c["lead"][0] == main_batch
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             tag = f"{case_label(c)}, {'fp32' if dt == torch.float32 else 'bf16'}"
             x, go = i["x"].to(dt), i["go"].to(dt)
@@ -1245,14 +1418,22 @@ def check_stage_kernels(dev, cfg):
                 for n, a, r in zip(names, got, ref) if r is not None], tol)
             if main and dt == torch.bfloat16:
                 errs["stage_bwd"] = max(errs["stage_bwd"], e)
+
+
+def hold_joins(sk, cases, gen, dev, keep, errs, main_batch,
+               workspace_checks=False):
+    """Each ``join`` launch of ``cases`` as :func:`hold_stages` holds a
+    stage; the bf16 ``gh`` and ``gres`` against the fp32 chain rule at the
+    kernels' rounding points.  ``workspace_checks``: the backward's
+    workspace checks on the first case."""
     names = ("gh", "g_m_h", "g_a_h", "g_b_h", "gres", "g_m_r", "g_a_r",
              "g_b_r")
-    for c in join_cases:
+    for c in cases:
         i = join_inputs(c, gen, dev, keep)
         kw = dict(keep=keep, act_h=c["act_h"])
         fn = lambda h, mh, ah, bh, res, mr, ar, br: (sk.join_plain(  # noqa: E731
             h, mh, ah, bh, i["mask"], res, mr, ar, br, **kw),)
-        main = c["lead"][0] == TRAIN_BATCH
+        main = c["lead"][0] == main_batch
         for dt, tol in ((torch.float32, TOL_F32), (torch.bfloat16, TOL_BF16)):
             tag = f"{case_label(c)}, {'fp32' if dt == torch.float32 else 'bf16'}"
             h, res, go = (i[k].to(dt) for k in ("h", "res", "go"))
@@ -1274,9 +1455,9 @@ def check_stage_kernels(dev, cfg):
 
             got = backward()
             same_bits(f"join bwd {tag}", got, backward())
-            if c is join_cases[0] and dt == torch.bfloat16:
-                join_workspace_checks(sk, got, backward, join_cases, gen,
-                                      dev, keep)
+            if workspace_checks and c is cases[0] and dt == torch.bfloat16:
+                join_workspace_checks(sk, got, backward, cases, gen, dev,
+                                      keep)
             ref = [g32[0], *g64[1:4], g32[4], *g64[5:]]
             if dt == torch.bfloat16:
                 # gh and gres against the kernels' rounding points; the
@@ -1294,10 +1475,6 @@ def check_stage_kernels(dev, cfg):
                 for n, a, r in zip(names, got, ref) if r is not None], tol)
             if main and dt == torch.bfloat16:
                 errs["join_bwd"] = max(errs["join_bwd"], e)
-    torch.cuda.synchronize()
-    log("  every stage and join launch, run twice on the same inputs, gave "
-        "the same bits")
-    return errs
 
 
 def err_ratio(got, ref, tol=TOL_BF16):
@@ -1467,21 +1644,26 @@ def join_work(c, esize):
 def fused_timings(dev, cfg, stock_state, fused_state, xb, yb, launches, errs):
     """Phase 10: ``stage`` and ``join`` over the launches of one step and
     per geometry, then the fused step against the stock-op step."""
+    log(f"phase 10: stage and join timings, bf16, batch {TRAIN_BATCH} (CUDA "
+        f"events, median of {RUNS})")
     record = stage_kernel_timings(dev, cfg, launches, errs)
+    join_host_times(dev)
     fused_step_timings(stock_state, fused_state, xb, yb, record)
     return record
 
 
-def stage_kernel_timings(dev, cfg, launches, errs):
-    """The kernel half of phase 10.  Returns the record rows of ``stage``
-    and ``join``, forward and backward."""
+def stage_kernel_timings(dev, cfg, launches, errs, batch=TRAIN_BATCH,
+                         per_launch=True, what=""):
+    """The kernel half of phase 10 (and of phase 15's timings, for the
+    MM-Fi model): ``stage`` and ``join`` over the launches of one fused
+    step of ``cfg`` at ``batch``, and with ``per_launch`` each distinct
+    launch alone.  Returns the record rows of ``stage`` and ``join``,
+    forward and backward."""
     import torch.nn.functional as F
     from wiflow_tpu_torch.ops.kernels import stage_fused as sk
-    log(f"phase 10: stage and join timings, bf16, batch {TRAIN_BATCH} (CUDA "
-        f"events, median of {RUNS})")
     keep = 1.0 - cfg.dropout
     dt = torch.bfloat16
-    stages, joins = sk.step_launches(cfg, TRAIN_BATCH)
+    stages, joins = sk.step_launches(cfg, batch)
     gen = torch.Generator(device=dev).manual_seed(SEED + 10)
 
     def paths(c):
@@ -1562,39 +1744,41 @@ def stage_kernel_timings(dev, cfg, launches, errs):
     plain_runs = max(3, RUNS // 4)
 
     # per geometry: each distinct launch of the step, once
-    log("  per launch: kernel / plain / bound ms, forward then backward "
-        "(CUDA events: a launch of a few microseconds reads as the host's "
-        "time to enqueue it); F.conv where the stage is a bare convolution; "
-        "the device's busy time in the kernels (torch.profiler); the plan's "
-        "path of the forward, the input gradient and the weight gradient")
-    seen = set()
-    for c, f, (wf, wb) in list(zip(stages, sfn, swork)) + list(
-            zip(joins, jfn, jwork)):
-        label = case_label(c)
-        if label in seen:
-            continue
-        seen.add(label)
-        bf, byf = bound_ms(*wf, dt)
-        bb, byb = bound_ms(*wb, dt)
-        lib = ("" if f["lib"] is None
-               else f", F.conv {time_ms(f['lib'], RUNS):.4f}")
-        if "kind" in c:
-            path = " [" + " / ".join(paths(c)) + "]"
-        else:
-            path = " [" + " / ".join(
-                "v {0.vec}, {0.slices} x {0.cols} chunks, {0.rows} rows, "
-                "grid {0.grid}".format(sk.join_plan(
-                    math.prod(c["lead"]), c["c"], dt, bwd))
-                for bwd in (False, True)) + "]"
-        log(f"    {label}: fwd {time_ms(f['fwd'], RUNS):.4f} / "
-            f"{time_ms(f['plain_fwd'], plain_runs):.4f} / {bf:.4f} ({byf})"
-            f"{lib}; bwd {time_ms(f['bwd'], RUNS):.4f} / "
-            f"{time_ms(f['plain_bwd'], plain_runs):.4f} / {bb:.4f} ({byb})"
-            f"; device busy fwd {device_ms(f['fwd']):.4f}, bwd "
-            f"{device_ms(f['bwd']):.4f}{path}")
+    if per_launch:
+        log("  per launch: kernel / plain / bound ms, forward then "
+            "backward (CUDA events: a launch of a few microseconds reads as "
+            "the host's time to enqueue it); F.conv where the stage is a "
+            "bare convolution; the device's time queued behind a spin; the "
+            "plan's path of the forward, the input gradient and the weight "
+            "gradient")
+        seen = set()
+        for c, f, (wf, wb) in list(zip(stages, sfn, swork)) + list(
+                zip(joins, jfn, jwork)):
+            label = case_label(c)
+            if label in seen:
+                continue
+            seen.add(label)
+            bf, byf = bound_ms(*wf, dt)
+            bb, byb = bound_ms(*wb, dt)
+            lib = ("" if f["lib"] is None
+                   else f", F.conv {time_ms(f['lib'], RUNS):.4f}")
+            if "kind" in c:
+                path = " [" + " / ".join(paths(c)) + "]"
+            else:
+                path = " [" + " / ".join(
+                    "v {0.vec}, {0.slices} x {0.cols} chunks, {0.rows} rows, "
+                    "grid {0.grid}".format(sk.join_plan(
+                        math.prod(c["lead"]), c["c"], dt, bwd))
+                    for bwd in (False, True)) + "]"
+            log(f"    {label}: fwd {time_ms(f['fwd'], RUNS):.4f} / "
+                f"{time_ms(f['plain_fwd'], plain_runs):.4f} / {bf:.4f} ({byf})"
+                f"{lib}; bwd {time_ms(f['bwd'], RUNS):.4f} / "
+                f"{time_ms(f['plain_bwd'], plain_runs):.4f} / {bb:.4f} ({byb})"
+                f"; queued fwd {queued_ms(f['fwd']):.4f}, bwd "
+                f"{queued_ms(f['bwd']):.4f}{path}")
 
     # summed over the launches of one train step
-    record, join_busy = [], []
+    record, join_queued = [], []
     for name, fns, work, key in (("stage_fwd", sfn, swork, "fwd"),
                                  ("stage_bwd", sfn, swork, "bwd"),
                                  ("join_fwd", jfn, jwork, "fwd"),
@@ -1602,9 +1786,7 @@ def stage_kernel_timings(dev, cfg, launches, errs):
         # the host's time to enqueue the loop beside the device's time to
         # run it: which of the two paces the launches
         ms, enqueue_ms = time_step_ms(lambda: [f[key]() for f in fns], RUNS)
-        by_kernel = {}
-        busy_ms = device_ms(lambda: [f[key]() for f in fns],
-                            by_kernel=by_kernel)
+        device = queued_ms(lambda: [f[key]() for f in fns], LOOP_RUNS)
         plain_ms = time_ms(lambda: [f["plain_" + key]() for f in fns],
                            plain_runs)
         which = 0 if key == "fwd" else 1
@@ -1618,7 +1800,7 @@ def stage_kernel_timings(dev, cfg, launches, errs):
                "replaces": kern.replaces, "launches": launches[name],
                "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bms, "bound_by": by, "library_ms": None,
-               "enqueue_ms": enqueue_ms, "device_busy_ms": busy_ms}
+               "enqueue_ms": enqueue_ms, "device_queued_ms": device}
         lib = ""
         if name.startswith("stage"):
             counts = {}
@@ -1635,33 +1817,29 @@ def stage_kernel_timings(dev, cfg, launches, errs):
             row["library_launches"] = len(bare)
             row["ms_of_library_launches"] = time_ms(
                 lambda: [f["fwd"]() for f in bare], RUNS)
-            row["library_device_busy_ms"] = device_ms(
-                lambda: [f["lib"]() for f in bare])
-            row["device_busy_ms_of_library_launches"] = device_ms(
-                lambda: [f["fwd"]() for f in bare])
+            row["library_device_queued_ms"] = queued_ms(
+                lambda: [f["lib"]() for f in bare], LOOP_RUNS)
+            row["device_queued_ms_of_library_launches"] = queued_ms(
+                lambda: [f["fwd"]() for f in bare], LOOP_RUNS)
             lib += (f"; the {len(bare)} launches that are bare convolutions: "
-                    f"kernel {row['ms_of_library_launches']:.4f} ms (device "
-                    f"busy {row['device_busy_ms_of_library_launches']:.4f}), "
-                    f"F.conv {row['library_ms']:.4f} ms (device busy "
-                    f"{row['library_device_busy_ms']:.4f})")
+                    f"kernel {row['ms_of_library_launches']:.4f} ms (queued "
+                    f"{row['device_queued_ms_of_library_launches']:.4f}), "
+                    f"F.conv {row['library_ms']:.4f} ms (queued "
+                    f"{row['library_device_queued_ms']:.4f})")
         if name.startswith("join"):
-            join_busy.append(busy_ms)
-        log(f"  {name}, the {len(fns)} launches of one step: kernel "
+            join_queued.append(device)
+        log(f"  {name}, the {len(fns)} launches of one {what}step: kernel "
             f"{ms:.4f} ms (the host enqueues the loop in {enqueue_ms:.4f} "
-            f"ms; the device is busy {busy_ms:.4f} ms of it), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
+            f"ms; queued behind a spin, the device runs it in {device:.4f} "
+            f"ms), plain {plain_ms:.4f} ms, bound {bms:.4f} ms "
             f"(mostly {by}; {sum(w[which][0] for w in work) / 1e9:.3f} "
             f"GFLOP, {sum(w[which][1] for w in work) / 1e9:.4f} GB){lib}")
-        for kname, (kms, count) in sorted(by_kernel.items(),
-                                          key=lambda r: -r[1][0]):
-            short = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "",
-                           kname).split("(")[0]
-            log(f"    {kms:8.4f} ms x{count:g} {short[:80]}")
         record.append(row)
-    SUMMARY.append(f"join fwd / bwd device busy over the step's 9 launches "
-                   f"{join_busy[0]:.4f} / {join_busy[1]:.4f} ms")
+    SUMMARY.append(f"join fwd / bwd queued over the {what}step's "
+                   f"{len(joins)} launches {join_queued[0]:.4f} / "
+                   f"{join_queued[1]:.4f} ms")
     del sfn, jfn
     torch.cuda.empty_cache()
-    join_host_times(dev)
     return record
 
 
@@ -1738,7 +1916,12 @@ def stage_phases():
     build_kernels(("stage_fused", "join_fused"))
     dev, cfg = torch.device("cuda"), ModelConfig()
     errs = check_stage_kernels(dev, cfg)
-    return stage_kernel_timings(dev, cfg, dict.fromkeys(STAGE_ATTRS, 0), errs)
+    log(f"phase 10: stage and join timings, bf16, batch {TRAIN_BATCH} (CUDA "
+        f"events, median of {RUNS})")
+    record = stage_kernel_timings(dev, cfg, dict.fromkeys(STAGE_ATTRS, 0),
+                                  errs)
+    join_host_times(dev)
+    return record
 
 
 def reset_launches(all_kernels):
@@ -2613,24 +2796,25 @@ class _Tee(io.TextIOBase):
         self.out.flush()
 
 
-def cli_main(argv):
-    """``wiflow_tpu_torch.cli.run.main(argv)`` in this process: must return
-    0; returns what it printed."""
-    from wiflow_tpu_torch.cli import run as cli
+def cli_main(argv, name="run"):
+    """``wiflow_tpu_torch.cli.<name>.main(argv)`` in this process: must
+    return 0; returns what it printed."""
+    import importlib
+    cli = importlib.import_module(f"wiflow_tpu_torch.cli.{name}")
     tee = _Tee(sys.stdout)
     with contextlib.redirect_stdout(tee):
         rc = cli.main(argv)
     if rc != 0:
-        raise AssertionError(f"cli.run.main({argv}) returned {rc}")
+        raise AssertionError(f"cli.{name}.main({argv}) returned {rc}")
     return tee.kept.getvalue()
 
 
 @contextlib.contextmanager
-def watched_steps(all_kernels):
+def watched_steps(all_kernels, augmented=True):
     """Wraps ``train/steps.py::train_step`` for one run: the first step's
     launches are read (each train kernel must launch twice), the second
-    runs with host syncs forbidden and must augment.  Yields the count of
-    steps taken."""
+    runs with host syncs forbidden and, where ``augmented``, must augment.
+    Yields the count of steps taken."""
     from wiflow_tpu_torch.train import steps
     inner = steps.train_step
     seen = {"steps": 0}
@@ -2647,7 +2831,7 @@ def watched_steps(all_kernels):
                             dict.fromkeys(TRAIN_KERNELS, 2))
             return m
         if i == 1:
-            if kw.get("augment") is None:
+            if augmented and kw.get("augment") is None:
                 raise AssertionError("the resumed epoch's step does not "
                                      "augment")
             torch.cuda.set_sync_debug_mode("error")
@@ -2655,8 +2839,9 @@ def watched_steps(all_kernels):
                 m = inner(*args, **kw)
             finally:
                 torch.cuda.set_sync_debug_mode(0)
-            log("  one augmented train step of the resumed run ran with no "
-                "host sync (torch.cuda.set_sync_debug_mode('error'))")
+            log(f"  one {'augmented ' if augmented else ''}train step of the "
+                f"resumed run ran with no host sync "
+                f"(torch.cuda.set_sync_debug_mode('error'))")
             return m
         return inner(*args, **kw)
 
@@ -2712,14 +2897,14 @@ def same_run(a, b):
                                     for k, v in ha["model"].items())
 
 
-def epoch_numbers(what, timings, windows):
-    """Logs one run's seconds per epoch, training windows/s, host share
-    and write times."""
+def epoch_numbers(what, timings, windows, unit="windows"):
+    """Logs one run's seconds per epoch, training windows (or frames) a
+    second, host share and write times."""
     rates = [windows / t for t in timings["train_s"]]
     share = [e / t for e, t in zip(timings["enqueue_s"], timings["train_s"])]
     log(f"  {what}: seconds per epoch "
         + ", ".join(f"{t:.3f}" for t in timings["epoch_s"])
-        + "; training windows/s "
+        + f"; training {unit}/s "
         + ", ".join(f"{r:.1f}" for r in rates)
         + "; the host's share of an epoch's training (its enqueue time) "
         + ", ".join(f"{100 * v:.1f}%" for v in share)
@@ -2880,6 +3065,408 @@ def cli_slice(dev, all_kernels):
             f"{epochs} epochs {spread:.3e} of max {top:.3e}")
 
 
+def mmfi_tree(root):
+    """Phase 15 (a): a learnable synthetic MM-Fi tree, ``MMFI_SUBJECTS`` x
+    ``MMFI_ACTIONS`` x MM-Fi's 297 frames a sequence, and the counts of
+    the CLI's default split of it."""
+    from wiflow_tpu_torch.cli.run_mmfi import DEFAULT_CONFIG
+    from wiflow_tpu_torch.data.mmfi import (
+        FRAMES_PER_SEQUENCE, generate_synthetic_mmfi, make_dataset,
+        split_val_test,
+    )
+    t0 = time.perf_counter()
+    generate_synthetic_mmfi(root, subjects=MMFI_SUBJECTS,
+                            actions=MMFI_ACTIONS, frames=FRAMES_PER_SEQUENCE,
+                            fmt="npy", learnable=True)
+    secs = time.perf_counter() - t0
+    size = sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+    train_ds, val_ds = make_dataset(root, DEFAULT_CONFIG)
+    val, test = split_val_test(len(val_ds))
+    frames = len(MMFI_SUBJECTS) * len(MMFI_ACTIONS) * FRAMES_PER_SEQUENCE
+    log(f"  (a) a learnable synthetic MM-Fi tree: {len(MMFI_SUBJECTS)} "
+        f"subjects x {len(MMFI_ACTIONS)} actions x {FRAMES_PER_SEQUENCE} "
+        f"frames = {frames} frames, {size / 1e6:.1f} MB of .npy, written in "
+        f"{secs:.2f} s; the CLI's split ({DEFAULT_CONFIG['protocol']}, "
+        f"{DEFAULT_CONFIG['split_to_use']}): train {len(train_ds)}, val "
+        f"{len(val)}, test {len(test)}")
+    if len(train_ds) + len(val) + len(test) != frames or not len(test):
+        raise AssertionError("the split does not cover the tree")
+
+
+def mmfi_data(tree, out):
+    """The CLI's train, val and test splits of ``tree``, from the caches
+    it wrote in ``out``."""
+    from wiflow_tpu_torch.cli.run_mmfi import DEFAULT_CONFIG
+    from wiflow_tpu_torch.data.mmfi import make_dataset, split_val_test
+    train_ds, val_ds = make_dataset(tree, DEFAULT_CONFIG)
+    train = train_ds.materialize(os.path.join(out, "mmfi_train_cache.npz"))
+    x, y = val_ds.materialize(os.path.join(out, "mmfi_val_cache.npz"))
+    vi, ti = split_val_test(len(val_ds))
+    return train, (x[vi], y[vi]), (x[ti], y[ti])
+
+
+@torch.no_grad()
+def serve_trained_mmfi(dev, all_kernels, out, test):
+    """Phase 15 (c): the best weights in ``out`` served through
+    ``fast_forward_mmfi`` and held to the plain module, and the
+    root-relative metrics of the served batch on the card against the same
+    on the CPU; returns the output's std over the batch and
+    max|output|."""
+    import numpy as np
+    from wiflow_tpu_torch.core.checkpoint import load_best_model
+    from wiflow_tpu_torch.metrics import mmfi_metrics as mm
+    from wiflow_tpu_torch.models.fast import fast_forward_mmfi, pack_fast_mmfi
+    from wiflow_tpu_torch.models.torch_compat import load_state_dict
+    from wiflow_tpu_torch.models.wiflow_mmfi import (
+        MMFiModelConfig, WiFlowMMFiModel,
+    )
+    sd = load_best_model(os.path.join(out, "best_pose_model.pth"))
+    msg = load_best_model(os.path.join(out, "best_pose_model.msgpack"),
+                          MMFiModelConfig())
+    if sorted(msg) != sorted(k for k in sd if not k.endswith(
+            "num_batches_tracked")) or not all(
+                torch.equal(v, sd[k]) for k, v in msg.items()):
+        raise AssertionError("best_pose_model.msgpack and .pth differ")
+    log(f"  best_pose_model.msgpack gives the .pth's state_dict bit for bit "
+        f"({len(msg)} tensors)")
+    n = len(test[0])
+    reps = -(-BATCH // n)
+    x = torch.from_numpy(np.ascontiguousarray(test[0])).to(dev).repeat(
+        reps, 1, 1, 1)[:BATCH]
+    y = torch.from_numpy(test[1]).to(dev).repeat(reps, 1, 1)[:BATCH]
+    packed = pack_fast_mmfi(sd, MMFiModelConfig(), device=dev)
+    reset_launches(all_kernels)
+    out16 = fast_forward_mmfi(packed, x)
+    expect_launches("fast_forward_mmfi of the trained weights",
+                    read_launches(all_kernels),
+                    {"tcn_level": len(packed.tcn), "conv_stack": 1,
+                     "axial_attention": 2})
+    ref = load_state_dict(WiFlowMMFiModel(MMFiModelConfig(
+        compute_dtype="float32"), device=dev), sd)(x)
+    compare(f"trained weights: fast_forward_mmfi bf16 vs module fp32, the "
+            f"test split's {n} frames repeated to {BATCH}", out16, ref,
+            TOL_BF16)
+    thresholds = (0.1, 0.2, 0.3, 0.4, 0.5)
+    for name, fn in (
+            ("root_relative_pck_fractions",
+             lambda p, t: mm.root_relative_pck_fractions(p, t, thresholds)),
+            ("root_aligned_mpjpe", mm.root_aligned_mpjpe)):
+        card, host = fn(out16, y), fn(out16.cpu(), y.cpu())
+        diff = (card.cpu() - host).abs().max().item()
+        log(f"  MM-Fi metric {name} of the served batch: card vs CPU "
+            f"max_abs_diff={diff:.3e} (limit 1e-4), value "
+            f"{[round(v, 6) for v in card.flatten().tolist()]}")
+        if card.device != out16.device or not diff <= 1e-4:
+            raise AssertionError(f"MM-Fi metric {name}: card and CPU differ "
+                                 f"by {diff}")
+    spread = out16.std(dim=0).mean().item()
+    top = out16.abs().max().item()
+    log(f"  served output: std over the batch {spread:.4e} (mean over the "
+        f"{out16[0].numel()} outputs), max|output| {top:.4e}, bar "
+        f"{MIN_SPREAD * top:.4e} (1/100 of max|output|): "
+        f"{'reached' if spread >= MIN_SPREAD * top else 'NOT reached'}")
+    return spread, top
+
+
+def mmfi_cli_slice(dev, all_kernels, tmp):
+    """Phase 15 (a)-(c): the tree, the MM-Fi CLI on it (a subprocess, a
+    resume in this process, a run never stopped), the ``--synthetic``
+    ``.mat`` tree, and the trained weights served.  Returns the CLI's
+    splits and the launches of its step."""
+    import glob
+    import importlib.util
+    root = os.path.dirname(os.path.abspath(__file__))
+    tree = os.path.join(tmp, "MMFi")
+    mmfi_tree(tree)
+    out, straight = (os.path.join(tmp, d) for d in ("mmfi_out",
+                                                     "mmfi_straight"))
+    flags = [*MMFI_CLI_FLAGS, "--lr", str(MMFI_LR), "--dataset_root",
+             tree]
+    cmd = [sys.executable, "-m", "wiflow_tpu_torch.cli.run_mmfi", *flags,
+           "--output_dir", out, "--epochs", "2"]
+    log(f"  (b) the MM-Fi CLI on the card: {' '.join(cmd[1:])}")
+    t0 = time.perf_counter()
+    first = subprocess.run(cmd, cwd=root, capture_output=True, text=True,
+                           timeout=CLI_TIMEOUT)
+    wall = time.perf_counter() - t0
+    for line in first.stdout.splitlines():
+        log(f"  | {line}")
+    if first.returncode != 0:
+        raise AssertionError(f"the MM-Fi CLI exited {first.returncode}:\n"
+                             f"{first.stderr[-4000:]}")
+    missing = [f for f in MMFI_CLI_FILES
+               if not os.path.exists(os.path.join(out, f))]
+    png = os.path.exists(os.path.join(out, "training_history.png"))
+    has_mpl = importlib.util.find_spec("matplotlib") is not None
+    if missing or png != has_mpl or (
+            not has_mpl and "skipped training_history.png"
+            not in first.stdout):
+        raise AssertionError(f"the MM-Fi CLI's files: missing {missing}, "
+                             f"PNG {png} with matplotlib {has_mpl}")
+    log(f"  the MM-Fi CLI exited 0 in {wall:.2f} s and wrote "
+        + ", ".join(sorted(os.listdir(out))))
+    first_hist = csv_rows(os.path.join(out, "training_history.csv"))
+    first_t = run_timings(first.stdout)
+
+    reset_launches(all_kernels)
+    with watched_steps(all_kernels, augmented=False) as seen:
+        text = cli_main([*flags, "--output_dir", out, "--epochs", "3"],
+                        "run_mmfi")
+    launches = read_launches(all_kernels)
+    steps = seen["steps"]
+    expect_launches(f"the resumed MM-Fi run ({steps} steps)", launches,
+                    {n: 2 * steps for n in TRAIN_KERNELS})
+    if "[resume] continuing from epoch 3 of 3" not in text or \
+            "Epoch 3/3" not in text:
+        raise AssertionError("the second MM-Fi call did not resume at "
+                             "epoch 3")
+    hist = csv_rows(os.path.join(out, "training_history.csv"))
+    if len(hist) != 4 or hist[:3] != first_hist:
+        raise AssertionError("the resumed MM-Fi history does not keep the "
+                             "first run's rows")
+    log("  resumed at epoch 3; history rows of epochs 1-2 equal the first "
+        "run's")
+    resumed_t = run_timings(text)
+    straight_t = run_timings(cli_main(
+        [*flags, "--output_dir", straight, "--epochs", "3"], "run_mmfi"))
+    if same_run(out, straight):
+        log("  resumed MM-Fi run vs the run never stopped: history and "
+            "final weights equal bit for bit")
+        SUMMARY.append("MM-Fi resume bit-equal")
+    else:
+        again = os.path.join(tmp, "mmfi_again")
+        cli_main([*flags, "--output_dir", again, "--epochs", "3"],
+                 "run_mmfi")
+        noise = run_distance(again, straight)
+        got = run_distance(out, straight)
+        log(f"  resumed MM-Fi run vs the run never stopped: NOT bit-equal; "
+            f"largest relative difference {got:.3e}, limit {2 * noise:.3e}"
+            f" (twice that of two runs never stopped, {noise:.3e})")
+        SUMMARY.append(f"MM-Fi resume within noise {got:.3e} <= "
+                       f"{2 * noise:.3e}")
+        if not got <= 2 * noise:
+            raise AssertionError(f"MM-Fi resume differs by {got} > 2 x "
+                                 f"{noise}")
+    frames = steps * DEFAULT_BATCH
+    epoch_numbers("first MM-Fi run (subprocess)", first_t, frames, "frames")
+    epoch_numbers("resumed MM-Fi run", resumed_t, frames, "frames")
+    rates, share = epoch_numbers("MM-Fi run never stopped", straight_t,
+                                 frames, "frames")
+    log(f"  first MM-Fi run's wall clock (process start, caches, 2 epochs, "
+        f"artifacts): {wall:.2f} s")
+
+    # --synthetic on a missing root: the JAX CLI's miniature .mat tree
+    mat = os.path.join(tmp, "mmfi_synthetic")
+    text = cli_main(["--synthetic", "--dataset_root", mat, "--output_dir",
+                     os.path.join(tmp, "mmfi_synthetic_out"), "--epochs",
+                     "1", "--no_videos"], "run_mmfi")
+    mats = glob.glob(os.path.join(mat, "E*", "S*", "A*", "wifi-csi",
+                                  "frame*.mat"))
+    if "[synthetic] generating" not in text or not mats:
+        raise AssertionError("--synthetic wrote no .mat tree")
+    log(f"  --synthetic on a missing root: {len(mats)} .mat frames written "
+        f"and trained on for 1 epoch, exit 0")
+
+    # (c) the trained weights served
+    data = mmfi_data(tree, out)
+    spread, top = serve_trained_mmfi(dev, all_kernels, out, data[2])
+    if not spread >= MIN_SPREAD * top:
+        raise AssertionError(f"the served MM-Fi output hardly varies: std "
+                             f"{spread} < {MIN_SPREAD} x {top}")
+    SUMMARY.append(
+        f"MM-Fi CLI first run {wall:.2f} s, epoch median "
+        f"{statistics.median(straight_t['epoch_s']):.3f} s, "
+        f"{statistics.median(rates):.1f} frames/s, host "
+        f"{100 * statistics.median(share):.1f}%, served std after 3 "
+        f"epochs at --lr {MMFI_LR:g} {spread:.3e} of max {top:.3e}")
+    return data, {n: launches[n] // steps for n in TRAIN_KERNELS}
+
+
+def mmfi_fused_slice(dev, all_kernels, data):
+    """Phase 15 (d): the fused MM-Fi step.  Returns the launches of one
+    step and each stage and join kernel's largest bf16 error at its
+    launches."""
+    from wiflow_tpu_torch.core.config import (
+        MMFI_SKELETON_CONNECTIONS, Config, OptimConfig, TrainConfig,
+    )
+    from wiflow_tpu_torch.metrics import mmfi_metrics as mm
+    from wiflow_tpu_torch.models.wiflow_mmfi import (
+        MMFiModelConfig, WiFlowMMFiModel,
+    )
+    from wiflow_tpu_torch.ops.kernels import stage_fused as sk
+    from wiflow_tpu_torch.train.loop import train_pose_model
+    from wiflow_tpu_torch.train.steps import make_hooks, train_step
+    cfg = MMFiModelConfig(**FUSED)
+    stages, joins = sk.step_launches(cfg, DEFAULT_BATCH)
+    log(f"  (d) the fused MM-Fi step: MMFiModelConfig({FUSED}) "
+        f"({cfg.compute_dtype}, dropout {cfg.dropout}/{cfg.conv_dropout}), "
+        f"batch {DEFAULT_BATCH}; step_launches: {len(stages)} stage and "
+        f"{len(joins)} join launches each way")
+    if (len(stages), len(joins)) != (34, 8):
+        raise AssertionError(f"step_launches gives {len(stages)} stages and "
+                             f"{len(joins)} joins for the MM-Fi model")
+    expect = {**dict.fromkeys(TRAIN_KERNELS, 2),
+              **{n: len(stages if n.startswith("stage") else joins)
+                 for n in STAGE_ATTRS}}
+    hooks = make_hooks(connections=MMFI_SKELETON_CONNECTIONS,
+                       pck_fn=mm.root_relative_pck_fractions,
+                       mpe_fn=mm.root_aligned_mpjpe)
+    (tx, ty), _, _ = data
+    xb = torch.from_numpy(tx[:DEFAULT_BATCH]).to(dev)
+    yb = torch.from_numpy(ty[:DEFAULT_BATCH]).to(dev)
+    state = seeded_state(cfg, dev, OptimConfig(weight_decay=1e-4))
+    reset_launches(all_kernels)
+    train_step(state, xb, yb, hooks=hooks)
+    launches = read_launches(all_kernels)
+    expect_launches("one fused MM-Fi step", launches, expect)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        train_step(state, xb, yb, hooks=hooks)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    log("  a second fused MM-Fi step ran with no host sync "
+        "(torch.cuda.set_sync_debug_mode('error'))")
+
+    # one fp32 step with dropout on, fused against stock ops, held to twice
+    # the step's fp32 rounding noise (phase 9)
+    kw = dict(compute_dtype="float32")
+    off = MMFiModelConfig(dropout=0.0, conv_dropout=0.0, **kw)
+    card = fp32_step(dev, off, xb.float(), yb, hooks=hooks)
+    host = fp32_step("cpu", off, xb.float().cpu(), yb.cpu(), hooks=hooks)
+    noise = max(leaf_noise(card[1], host[1], GRAD_FLOOR),
+                leaf_noise(card[2], host[2], STAT_FLOOR),
+                leaf_noise({"g": card[0]["grad_norm"]},
+                           {"g": host[0]["grad_norm"]}, 0.0))
+    tol = max(TOL_F32, 2.0 * noise)
+    log(f"  fp32 rounding noise of one MM-Fi step (stock ops on the card vs "
+        f"stock ops on the CPU, dropout 0): {noise:.3e}; the fused step is "
+        f"held to {tol:.3e}")
+    compare_fp32_steps("MM-Fi fused vs stock ops, dropout on",
+                       fp32_step(dev, MMFiModelConfig(**kw, **FUSED),
+                                 xb.float(), yb, hooks=hooks),
+                       fp32_step(dev, MMFiModelConfig(**kw), xb.float(), yb,
+                                 hooks=hooks), tol)
+
+    # every stage and join launch of the step against its plain version
+    gen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    errs = dict.fromkeys(STAGE_ATTRS, 0.0)
+    keep = 1.0 - cfg.dropout
+    hold_stages(sk, stages, gen, dev, keep, errs, DEFAULT_BATCH)
+    hold_joins(sk, joins, gen, dev, keep, errs, DEFAULT_BATCH)
+    torch.cuda.synchronize()
+    log(f"  the fused MM-Fi step's {len(stages)} stage and {len(joins)} join "
+        f"launches each held to their plain versions, each a second launch "
+        f"equal bit for bit")
+
+    # one train_pose_model epoch of the fused model on the tree
+    model = WiFlowMMFiModel(cfg, device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    res = train_pose_model(*data, Config(train=TrainConfig(
+        batch_size=DEFAULT_BATCH, num_epochs=1,
+        optim=OptimConfig(weight_decay=1e-4))), model=model,
+        connections=MMFI_SKELETON_CONNECTIONS,
+        pck_fn=mm.root_relative_pck_fractions, mpe_fn=mm.root_aligned_mpjpe,
+        monitor="pck", verbose=False)
+    shape = (len(data[2][0]) // (DEFAULT_BATCH // 2) * (DEFAULT_BATCH // 2),
+             17, 3)
+    if (res.epochs_run != 1 or res.predictions.shape != shape
+            or not all(map(math.isfinite, res.test_metrics.values()))):
+        raise AssertionError(f"fused MM-Fi train_pose_model: "
+                             f"{res.epochs_run} epochs, "
+                             f"{res.predictions.shape}, {res.test_metrics}")
+    log(f"  train_pose_model, fused MM-Fi model: 1 epoch in "
+        f"{res.wall_clock_sec:.2f} s ({res.timings['train_s'][0]:.3f} s of "
+        f"training), test {json.dumps(res.test_metrics)}")
+    return launches, errs
+
+
+def mmfi_step_timings(dev, data):
+    """Phase 15 (e): the stock-op and the fused MM-Fi step at each of
+    ``MMFI_STEP_BATCHES``, in alternating turns, each with the device's
+    busy time and events a step."""
+    from wiflow_tpu_torch.core.config import (
+        MMFI_SKELETON_CONNECTIONS, OptimConfig,
+    )
+    from wiflow_tpu_torch.metrics import mmfi_metrics as mm
+    from wiflow_tpu_torch.models.wiflow_mmfi import MMFiModelConfig
+    from wiflow_tpu_torch.train.steps import make_hooks, train_step
+    hooks = make_hooks(connections=MMFI_SKELETON_CONNECTIONS,
+                       pck_fn=mm.root_relative_pck_fractions,
+                       mpe_fn=mm.root_aligned_mpjpe)
+    (tx, ty), _, _ = data
+    optim = OptimConfig(weight_decay=1e-4)
+    for b in MMFI_STEP_BATCHES:
+        xb = torch.from_numpy(tx[:b]).to(dev)
+        yb = torch.from_numpy(ty[:b]).to(dev)
+        states = {"stock": seeded_state(MMFiModelConfig(), dev, optim),
+                  "fused": seeded_state(MMFiModelConfig(**FUSED), dev, optim)}
+        steps = {n: (lambda st=st: train_step(st, xb, yb, hooks=hooks))
+                 for n, st in states.items()}
+        turns = {n: [] for n in steps}
+        for r in range(STEP_ROUNDS):
+            for n in ("fused", "stock")[::1 if r % 2 == 0 else -1]:
+                turns[n].append(time_step_ms(steps[n], RUNS // 2))
+        for n, ts in turns.items():
+            ms = statistics.median(t for t, _ in ts)
+            host = statistics.median(h / t for t, h in ts)
+            log(f"MM-Fi {n} step bf16 batch {b}, median of {STEP_ROUNDS} "
+                f"turns of {RUNS // 2} steps: {ms:.4f} ms = "
+                f"{b / ms * 1e3:.1f} frames/s; the host's time to enqueue a "
+                f"step {host:.1%} of it; per turn, step / enqueue ms: "
+                + " ".join(f"{t:.4f}/{h:.4f}" for t, h in ts))
+            profile_step(steps[n], ms, top=8,
+                         what=f"MM-Fi {n} step batch {b}")
+        del states, steps
+
+
+def mmfi_kernel_timings(dev, inputs16, train_errs, cli_launches,
+                        fused_launches, stage_errs, record):
+    """Phase 15 (e): rows 6-13 at the MM-Fi step's shapes, batch
+    ``DEFAULT_BATCH``, into the ``mmfi_*`` keys of their record rows."""
+    from wiflow_tpu_torch.models.wiflow_mmfi import MMFiModelConfig
+    cfg = MMFiModelConfig()
+    c, g = cfg.conv_channels[-1], cfg.attention_groups
+    log(f"  rows 6-9 at the MM-Fi step's shapes, batch {DEFAULT_BATCH} "
+        f"(n={DEFAULT_BATCH * cfg.num_keypoints}, L={cfg.window_size}; "
+        f"n={DEFAULT_BATCH * cfg.window_size}, L={cfg.num_keypoints})")
+    times = train_kernel_times(inputs16, c, g)
+    rows = {r["name"]: r for r in record}
+    for name, t in times.items():
+        rows[name].update(
+            mmfi_launches=cli_launches[name],
+            mmfi_max_abs_err=train_errs[name], mmfi_ms=t["ms"],
+            mmfi_device_queued_ms=t["device_queued_ms"],
+            mmfi_plain_ms=t["plain_ms"], mmfi_bound_ms=t["bound_ms"],
+            mmfi_bound_by=t["bound_by"], mmfi_library_ms=t["library_ms"])
+    log(f"  rows 10-13 over the launches of one fused MM-Fi step, batch "
+        f"{DEFAULT_BATCH}")
+    for r in stage_kernel_timings(dev, MMFiModelConfig(**FUSED),
+                                  fused_launches, stage_errs,
+                                  batch=DEFAULT_BATCH, per_launch=False,
+                                  what="MM-Fi "):
+        rows[r["name"]].update(
+            mmfi_launches=r["launches"], mmfi_max_abs_err=r["max_abs_err"],
+            mmfi_ms=r["ms"], mmfi_device_queued_ms=r["device_queued_ms"],
+            mmfi_enqueue_ms=r["enqueue_ms"], mmfi_plain_ms=r["plain_ms"],
+            mmfi_bound_ms=r["bound_ms"], mmfi_bound_by=r["bound_by"])
+
+
+def mmfi_training(dev, all_kernels, inputs16, train_errs, record):
+    """Phase 15: MM-Fi training on the card, in a temporary directory."""
+    log(f"phase 15: MM-Fi training on the card (the MM-Fi CLI, batch "
+        f"{DEFAULT_BATCH}, bf16)")
+    with tempfile.TemporaryDirectory() as tmp:
+        data, cli_launches = mmfi_cli_slice(dev, all_kernels, tmp)
+    fused_launches, stage_errs = mmfi_fused_slice(dev, all_kernels, data)
+    log("  (e) timings (CUDA events, median of "
+        f"{RUNS}, bf16)")
+    mmfi_step_timings(dev, data)
+    mmfi_kernel_timings(dev, inputs16, train_errs, cli_launches,
+                        fused_launches, stage_errs, record)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2894,11 +3481,11 @@ def main() -> int:
 
     # -- phases 5-7: the training path ---------------------------------------
     c, g = cfg16.conv_channels[-1], cfg16.attention_groups
-    main16, train_errs = check_train_kernels(dev, c, g)
+    train16, train_errs = check_train_kernels(dev, c, g)
     state, xs, ys, train_launches = train_slice(dev, all_kernels)
     xb, yb = xs[:TRAIN_BATCH], ys[:TRAIN_BATCH]
-    record += train_timings(state, xb, yb, main16, c, g, train_launches,
-                            train_errs)
+    record += train_timings(state, xb, yb, train16["main"], c, g,
+                            train_launches, train_errs["main"])
 
     # -- phases 8-10: the stage-fused training path --------------------------
     stage_errs = check_stage_kernels(dev, cfg16)
@@ -2910,6 +3497,10 @@ def main() -> int:
 
     # -- phase 14: the CLI, resume, and the trained weights served ----------
     cli_slice(dev, all_kernels)
+
+    # -- phase 15: MM-Fi training on the card ---------------------------------
+    mmfi_training(dev, all_kernels, train16["mmfi"], train_errs["mmfi"],
+                  record)
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -84,6 +84,51 @@ def test_port_imports_without_pandas_matplotlib_cv2_msgpack():
         assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
 
 
+# What the card's machine lacks besides: sklearn and PyYAML.  The MM-Fi
+# layer draws sklearn's split with numpy and imports PyYAML only for a
+# ``--config`` file, OpenCV only for depth frames.
+MISSING_ON_THE_CARD = ("sklearn", "yaml", "cv2", "pandas", "matplotlib")
+
+_MMFI_WITHOUT_THEM = """
+import os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import numpy as np
+import torch
+torch.set_num_threads(1)
+from wiflow_tpu_torch.data.mmfi import split_val_test
+val, test = split_val_test(95)
+assert len(val) == 47 and len(test) == 48
+assert sorted(np.concatenate([val, test]).tolist()) == list(range(95))
+from wiflow_tpu_torch.cli import run_mmfi
+root = sys.argv[1]
+rc = run_mmfi.main(["--synthetic", "--dataset_root", os.path.join(root, "t"),
+                    "--output_dir", os.path.join(root, "out"), "--epochs",
+                    "1", "--device", "cpu", "--compute_dtype", "float32",
+                    "--no_videos"])
+assert rc == 0, rc
+print("ran", sorted(os.listdir(os.path.join(root, "out"))))
+"""
+
+
+def test_port_imports_without_what_the_card_lacks():
+    block = f"for name in {BLOCKED!r}:"
+    r = _run(["-c", _IMPORT_ALL.replace(
+        block, f"for name in {BLOCKED + MISSING_ON_THE_CARD!r}:", 1)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    for module in ("data.mmfi", "cli.run_mmfi", "metrics.metrics",
+                   "eval.artifacts"):
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
+
+
+def test_mmfi_split_and_cli_run_without_what_the_card_lacks(tmp_path):
+    r = _run(["-c", _MMFI_WITHOUT_THEM.format(
+        blocked=BLOCKED + MISSING_ON_THE_CARD), str(tmp_path)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "skipped training_history.png" in r.stdout
+    assert "'best_pose_model.pth'" in r.stdout.splitlines()[-1]
+
+
 def test_chip_smoke_fails_without_cuda():
     r = _run(["chip_smoke.py"])
     assert r.returncode != 0

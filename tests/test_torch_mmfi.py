@@ -91,9 +91,21 @@ def test_port_config_defaults_equal_jax_defaults():
 @pytest.mark.parametrize("name", ["tcn_train_impl", "conv_train_impl"])
 @pytest.mark.parametrize("impl", ["fused", "auto"])
 def test_fused_train_switches_are_not_ported(name, impl):
-    with pytest.raises(NotImplementedError, match="MM-Fi training slice"):
-        MMFiModelConfig(**{name: impl})
+    """(The name is kept from when the MM-Fi model refused the switches.)
+    Each switch builds what it selects on the CPU: ``"fused"`` the fused
+    blocks, ``"auto"`` the stock-op ones (it selects the fused path on a
+    CUDA device only); the other switch's blocks stay stock ops."""
+    cfg = dataclasses.replace(_port_config(SmallJaxConfig(**SMALL)),
+                              **{name: impl})
+    model = WiFlowMMFiModel(cfg, device="cpu")
+    tcn = [lv.fused for lv in model.tcn.network]
+    conv = [blk.fused for blk in (model.up, *model.residual_blocks)]
+    want = impl == "fused"
+    assert tcn == [want and name == "tcn_train_impl"] * len(tcn)
+    assert conv == [want and name == "conv_train_impl"] * len(conv)
     assert getattr(MMFiModelConfig(**{name: "xla"}), name) == "xla"
+    with pytest.raises(ValueError, match=name):
+        MMFiModelConfig(**{name: "pallas"})
 
 
 def test_weights_carry_over_exactly():

@@ -39,6 +39,18 @@ KEYPOINT_NAMES = {
 }
 
 
+# MM-Fi 17-keypoint skeleton: spine and head, legs from the bottom of the
+# torso, arms from the base of the neck (ref cross_dataset_test/WiFlow/
+# wiflow.py:544-551).
+MMFI_SKELETON_CONNECTIONS: Tuple[Tuple[int, int], ...] = (
+    (0, 7), (7, 8), (8, 9), (9, 10),
+    (0, 1), (1, 2), (2, 3),
+    (0, 4), (4, 5), (5, 6),
+    (9, 14), (14, 15), (15, 16),
+    (9, 11), (11, 12), (12, 13),
+)
+
+
 TRAIN_IMPLS = ("xla", "fused", "auto")
 
 

@@ -26,10 +26,11 @@ import os
 from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
-import torch
 
 from wiflow_tpu_torch.core.config import KEYPOINT_NAMES, SKELETON_CONNECTIONS
-from wiflow_tpu_torch.metrics.metrics import pck_per_keypoint
+from wiflow_tpu_torch.metrics.metrics import (
+    compute_pck_pckh, compute_pck_pckh_15, compute_pck_pckh_18,
+)
 
 KEYPOINT_GROUPS = {
     "head": [0],
@@ -39,11 +40,6 @@ KEYPOINT_GROUPS = {
     "left_leg": [9, 10, 11],
     "right_leg": [12, 13, 14],
 }
-# Per-joint PCK normalizers of the reference's evaluators by keypoint
-# count: (scale_a, scale_b, clamp) (ref baseline/WPformer/evaluation.py:
-# 6-83; the JAX package's compute_pck_pckh_15 / compute_pck_pckh /
-# compute_pck_pckh_18).
-PCK_SCALES = {15: (2, 12, 1e-6), 17: (5, 12, None), 18: (6, 13, None)}
 
 
 def _body_part(idx: int) -> str:
@@ -92,15 +88,17 @@ def save_all_predictions(true_kp: np.ndarray, pred_kp: np.ndarray,
 def _per_keypoint_pck(true_unscaled: np.ndarray, pred_unscaled: np.ndarray,
                       thr: float) -> Optional[np.ndarray]:
     """Per-joint PCK in percent by the reference's evaluator for the
-    keypoint count, on x/y; None for counts it has no evaluator for."""
-    k = true_unscaled.shape[1]
-    if k not in PCK_SCALES:
+    keypoint count (``compute_pck_pckh_15``, ``compute_pck_pckh`` or
+    ``compute_pck_pckh_18``, ref baseline/WPformer/evaluation.py:6-83), on
+    x/y (MM-Fi's 3-D keypoints too); None for counts it has no evaluator
+    for."""
+    fn = {15: compute_pck_pckh_15, 17: compute_pck_pckh,
+          18: compute_pck_pckh_18}.get(true_unscaled.shape[1])
+    if fn is None:
         return None
-    a, b, clamp = PCK_SCALES[k]
-    pck = pck_per_keypoint(torch.from_numpy(np.asarray(
-        pred_unscaled[..., :2], np.float32)), torch.from_numpy(np.asarray(
-            true_unscaled[..., :2], np.float32)), thr, a, b, clamp)
-    return pck.numpy()[:k]
+    return fn(np.asarray(pred_unscaled[..., :2], np.float32),
+              np.asarray(true_unscaled[..., :2], np.float32),
+              thr)[:true_unscaled.shape[1]]
 
 
 def calculate_keypoint_errors(true_kp: np.ndarray, pred_kp: np.ndarray,

@@ -18,7 +18,13 @@ Parameter and buffer names are the reference torch ``state_dict`` names
 every step is a stock torch op: this is the plain reference of
 ``models/fast.py::fast_forward_mmfi``.  Train mode is that of the blocks
 (batch statistics, dropout from ``dropout_generator``, the attention's
-train kernels).
+train kernels).  With ``tcn_train_impl`` / ``conv_train_impl`` set to
+``"fused"`` (or ``"auto"`` on a CUDA device) the train-mode TCN and conv
+stack run through the ``stage`` and ``join`` kernels of
+``ops/kernels/stage_fused.py``, as in ``WiFlowPoseModel``; the projection
+between them stays stock ops, as in the JAX model.  Parameters, buffers,
+dropout draws and values are those of the stock-op path, and eval mode
+ignores the switches.
 """
 
 from __future__ import annotations
@@ -29,7 +35,9 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from wiflow_tpu_torch.core.config import resolve_device
+from wiflow_tpu_torch.core.config import (
+    TRAIN_IMPLS, resolve_device, use_fused,
+)
 from wiflow_tpu_torch.models.layers import TorchBatchNorm, silu
 from wiflow_tpu_torch.models.wiflow import (
     ConvBlock, DualAxialAttention, TCNStack, reset_conv_parameters,
@@ -58,19 +66,17 @@ class MMFiModelConfig:
     dropout: float = 0.3                     # ref wiflow.py:1185
     conv_dropout: float = 0.3
     compute_dtype: str = "bfloat16"
-    # Train-mode lowering switches, carried so that the JAX package's
-    # configs load.  Only 'xla' (stock torch ops) is ported: the stage and
-    # join kernels are not yet held at the MM-Fi geometries.
+    # Train-mode lowering switches, as in ``ModelConfig``: "xla" (stock
+    # torch ops), "fused" (the TCN or the conv stack through the stage and
+    # join kernels) or "auto" (fused on a CUDA device).
     tcn_train_impl: str = "xla"
     conv_train_impl: str = "xla"
 
     def __post_init__(self):
         for name in ("tcn_train_impl", "conv_train_impl"):
-            if getattr(self, name) != "xla":
-                raise NotImplementedError(
-                    f"{name}={getattr(self, name)!r}: the fused train path "
-                    f"at the MM-Fi geometries belongs to the MM-Fi training "
-                    f"slice, which is not ported yet; use 'xla'")
+            if getattr(self, name) not in TRAIN_IMPLS:
+                raise ValueError(f"{name}={getattr(self, name)!r}: one of "
+                                 f"{TRAIN_IMPLS}")
 
     @property
     def input_channels(self) -> int:
@@ -104,11 +110,13 @@ class WiFlowMMFiModel(nn.Module):
                       bias=False, device=dev),
             TorchBatchNorm(cfg.tcn_proj_channels, device=dev), nn.SiLU())
         chans = tuple(cfg.conv_channels)
-        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev)
+        fused = use_fused(cfg.conv_train_impl, dev)
+        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev,
+                            fused=fused)
         blocks, n_in = [], chans[0]
         for n_out in chans:
             blocks.append(ConvBlock(n_in, n_out, 2, cfg.conv_dropout, gen,
-                                    device=dev))
+                                    device=dev, fused=fused))
             n_in = n_out
         self.residual_blocks = nn.ModuleList(blocks)
         c = chans[-1]
@@ -129,7 +137,10 @@ class WiFlowMMFiModel(nn.Module):
                 f"{tuple(x.shape)}")
         b = x.shape[0]
         x = x.to(cfg.dtype).reshape(b, cfg.input_channels, cfg.window_size)
-        x = self.tcn(x.transpose(1, 2))                   # [B, 10, 288]
+        x = x.transpose(1, 2)                             # [B, 10, 342]
+        if self.training and self.tcn.network[0].fused:
+            x = x.contiguous()        # once, for the stages that read it
+        x = self.tcn(x)                                   # [B, 10, 288]
         p = self.tcn_proj
         x = silu(p[1](pointwise_conv1d(x, p[0].weight)))  # [B, 10, 272]
         x = self.up(x[..., None])

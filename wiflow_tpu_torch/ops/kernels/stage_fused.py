@@ -527,10 +527,14 @@ def stage_geometry(kind: str, lead: Tuple[int, ...], ci: int, co: int,
 
 def step_launches(cfg, batch: int):
     """The ``stage`` and ``join`` launches of one fused train step of
-    ``cfg`` (a ``ModelConfig``) at ``batch``, in the model's order, as
-    dicts: a stage's geometry, the leading shape and channels of its
-    input, and whether it has a prologue, a mask (one bit per element or
-    per (sample, channel)), a bias, and an input that needs a gradient."""
+    ``cfg`` at ``batch``, in the model's order, as dicts: a stage's
+    geometry, the leading shape and channels of its input, and whether it
+    has a prologue, a mask (one bit per element or per (sample, channel)),
+    a bias, and an input that needs a gradient.  ``cfg`` is a
+    ``ModelConfig`` (the TCN reads ``num_subcarriers`` channels and the
+    conv stack its last level's) or an ``MMFiModelConfig`` (the TCN reads
+    ``input_channels``, 342, and the conv stack the projection's
+    ``tcn_proj_channels``, 272)."""
     t, g = cfg.window_size, cfg.tcn_groups
     stages, joins = [], []
 
@@ -540,7 +544,7 @@ def step_launches(cfg, batch: int):
                            dil=dil, pro=pro, mask=mask, bias=bias,
                            need_gx=need_gx))
 
-    cin = cfg.num_subcarriers
+    cin = getattr(cfg, "input_channels", cfg.num_subcarriers)
     for i, cout in enumerate(cfg.tcn_channels):
         lead, first = (batch, t), i == 0
         if cin != cout:
@@ -552,14 +556,16 @@ def step_launches(cfg, batch: int):
         joins.append(dict(lead=lead, c=cout, mask="element",
                           res_norm=cin != cout, act_h=True))
         cin = cout
-    w, ci = cfg.tcn_channels[-1], 1
+    # the conv stack's input comes from the TCN or the projection, which
+    # have parameters: every stage of it needs its input's gradient
+    w = getattr(cfg, "tcn_proj_channels", cfg.tcn_channels[-1])
+    ci = 1
     for k, co in enumerate((cfg.conv_channels[0],) + tuple(cfg.conv_channels)):
         strided = k > 0
         wout = (w - 1) // 2 + 1 if strided else w
-        stage("chunk1" if strided else "identity", (batch, t, w), ci, co,
-              need_gx=strided)
+        stage("chunk1" if strided else "identity", (batch, t, w), ci, co)
         stage("chunk3" if strided else "sym3", (batch, t, w), ci, co,
-              bias=True, need_gx=strided)
+              bias=True)
         for _ in range(2):
             stage("sym3", (batch, t, wout), co, co, pro=True, mask="sample",
                   bias=True)

@@ -124,11 +124,16 @@ def train_pose_model(
 ) -> TrainResult:
     """Train, validate with early stopping, then test with the best weights.
 
-    Each split is ``(x [N, 540, 20], y [N, 15, 2])`` numpy arrays.
+    Each split is a pair ``(x, y)`` of numpy arrays: ``x [N, 540, 20]``,
+    ``y [N, 15, 2]`` for ``WiFlowPoseModel``, and ``x [N, 3, 114, 10]``,
+    ``y [N, 17, 3]`` for ``WiFlowMMFiModel`` (``cli/run_mmfi.py``).
     ``output_dir``: where the best weights and the resume bundle go; None
     keeps everything in memory (no files, no resume).  ``model``: a module
     to train in place of ``WiFlowPoseModel(cfg.model)``, on its own device
-    (``device`` is then ignored).  The hooks are ``make_step_fns``'s.
+    (``device`` is then ignored); the ``.msgpack`` of the best weights is
+    written for the port's two WiFlow modules only.  The hooks are
+    ``make_step_fns``'s (the MM-Fi CLI passes the MM-Fi skeleton,
+    root-relative PCK and root-aligned MPJPE).
     ``monitor``: ``"mpe"`` (val MPE, mode min) or ``"pck"`` (val PCK@0.2,
     mode max).  ``init_state_dict``: entries of the model's ``state_dict``
     loaded over the fresh init (the JAX package's ``init_variables``).

@@ -133,8 +133,10 @@ def train_step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor,
                loss_cfg: LossConfig = LossConfig(),
                grad_accum_steps: int = 1, *, hooks: Optional[Hooks] = None,
                augment: Optional[torch.Generator] = None) -> Metrics:
-    """One optimizer step on the batch ``xb [B, 540, 20]``, ``yb [B, 15,
-    2]``: augmentation drawn from ``augment`` where given, forward in train
+    """One optimizer step on the batch ``xb``, ``yb`` (``[B, 540, 20]``,
+    ``[B, 15, 2]`` for ``WiFlowPoseModel``; ``[B, 3, 114, 10]``, ``[B, 17,
+    3]`` for ``WiFlowMMFiModel``): augmentation drawn from ``augment``
+    where given, forward in train
     mode, loss (the pose loss of ``loss_cfg`` unless ``hooks`` says
     otherwise), backward, clip, optimizer.  Updates ``state`` in place;
     returns the step's metrics as device tensors."""
