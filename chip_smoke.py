@@ -193,10 +193,52 @@ Phases (any failure exits nonzero; nothing is caught):
    (CUDA events, the device's time queued behind a spin, launches and
    bound, into the ``mmfi_*`` keys of their record rows).
 
+16. the ablations on the card, default ``ModelConfig`` at full width,
+   bf16: (a) ``cli.ablation_demo.main`` (the argv of ``python -m
+   wiflow_tpu_torch.cli.ablation_demo``) in this process over all five
+   variants, ``--synth_mode multipath``, 4,096 windows, 2 epochs, batch
+   256: it must write the summary and the table with the five rows in
+   order, and launch each attention train kernel twice a step of every
+   variant but ``no_attention`` and nothing else; each variant's
+   parameters, epoch seconds and step ms are printed; (b) one bf16 train
+   step of each variant: its launches (2 of each attention train kernel;
+   none for ``no_attention``) and its parameters; (c) ``tcn_conv``
+   ``plain`` and ``depthwise`` under both fused switches (rows 10-13):
+   every new ``stage`` geometry (the TCN's k=3 convs in one group and in a
+   group a channel, at batch 256 and 7) held to ``stage_plain`` in fp32
+   (TF32 off) and bf16 as in phase 8, a second launch bit-equal, each
+   geometry's ``stage_plan`` printed; a fused bf16 step must launch
+   ``stage`` and ``join`` as often as ``step_launches`` says; one fused
+   fp32 step with dropout on held to the stock-op step at 4x the step's
+   fp32 noise: the stock-op step's distance to the same step in float64
+   on the CPU (BatchNorm moments in float64 too, the card's dropout masks
+   replayed there; the fused step's own distance, ~3x it, is printed);
+   (d) timings: each new geometry's kernel,
+   plain and bound ms forward and backward (CUDA events and queued behind
+   a spin), and rows 10-13 over the launches of one fused step of each
+   variant, into the ``tcn_plain_*`` / ``tcn_depthwise_*`` keys of their
+   record rows;
+17. the baselines on the card, each at its published widths, bf16: (a)
+   ``cli.run_baseline`` ``--synthetic`` for ``hpeli``, ``wisppn``,
+   ``perunet`` and ``wpformer``, batch 64, 1 epoch (the CLI's 20
+   synthetic files cut to 100 frames: 1,134 train windows), in this
+   process with
+   its launches read (no kernel of the repository is on a baseline's
+   path: every count must stay 0); each model's step ms, training
+   windows/s, peak memory, parameters and FLOPs a window printed; ``hpeli``
+   resumed to 2 epochs must equal a 2-epoch run never stopped, bit for
+   bit; (b) ``cli.run_mmfi --model`` each baseline, 1 epoch, on phase 15's
+   tree made again with 4 of its 8 subjects; (c) ``cli.baseline_table``
+   over all five models at 2,048 windows, 1 epoch, batch 64: a FLOPs cell in every row, the
+   attention train kernels launched twice a step of the ``wiflow`` row, and
+   each row's step ms, windows/s, peak memory, parameters and FLOPs a
+   window printed.
+
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases; phases 14 and 15 run last.
+run after phase 4, before the training phases; phases 14-17 run last.
 The last lines are the card's name and power limit, the kernels' JSON
-record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys), a summary
+record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys, rows 10-13
+``tcn_plain_*`` and ``tcn_depthwise_*`` keys), a summary
 of the run (serving and step times, the steps' device busy time and the
 train kernels' share of it, rows 6-9's queued and CUDA-event times,
 the ``logits_sums`` wrappers' host time) and ``{"ok": true, "device":
@@ -317,6 +359,24 @@ MMFI_CLI_FLAGS = ["--batch_size", str(DEFAULT_BATCH), "--no_videos"]
 MMFI_CLI_FILES = CLI_FILES + ("mmfi_train_cache.npz", "mmfi_val_cache.npz")
 MMFI_LR = 3e-3
 MMFI_STEP_BATCHES = (DEFAULT_BATCH, TRAIN_BATCH)
+# Phase 16: the ablation CLI's data and recipe (the windows and epochs are
+# cut to fit the script's time; the widths are the model's), and the TCN
+# variants whose fused stages take new geometries.
+ABLATION_WINDOWS = 4096
+ABLATION_EPOCHS = 2
+ABLATION_FLAGS = ["--windows", str(ABLATION_WINDOWS), "--epochs",
+                  str(ABLATION_EPOCHS), "--batch_size", str(TRAIN_BATCH),
+                  "--synth_mode", "multipath"]
+TCN_VARIANTS = ("plain", "depthwise")
+# Phase 17: the baselines at their published widths, batch 64, 1 epoch,
+# on the CLI's synthetic files cut to 100 frames (1,134 train windows) and
+# on phase 15's MM-Fi tree cut to 4 of its subjects (the comparison
+# table at 2,048 windows): the script's time, widths untouched.
+BASELINES = ("hpeli", "wisppn", "perunet", "wpformer")
+BASELINE_FLAGS = ["--batch_size", str(DEFAULT_BATCH), "--epochs", "1"]
+BASELINE_FRAMES = 100
+BASELINE_MMFI_SUBJECTS = MMFI_SUBJECTS[:4]
+TABLE_WINDOWS = 2048
 
 
 # Short readings of the run, printed together just before the last line,
@@ -3467,6 +3527,412 @@ def mmfi_training(dev, all_kernels, inputs16, train_errs, record):
     torch.cuda.empty_cache()
 
 
+def ablation_cli(dev, all_kernels):
+    """Phase 16 (a): the ablation CLI over the five variants, in this
+    process, its launches read."""
+    from wiflow_tpu_torch.cli.ablation_demo import VARIANTS
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "ablations")
+        argv = [*ABLATION_FLAGS, "--output_dir", out]
+        log(f"  (a) python -m wiflow_tpu_torch.cli.ablation_demo "
+            f"{' '.join(argv)} (its main in this process)")
+        reset_launches(all_kernels)
+        t0 = time.perf_counter()
+        cli_main(argv, "ablation_demo")
+        wall = time.perf_counter() - t0
+        launches = read_launches(all_kernels)
+        with open(os.path.join(out, "ablation_summary.json"),
+                  encoding="utf-8") as fd:
+            rows = json.load(fd)["rows"]
+        with open(os.path.join(out, "ablation_table.md"),
+                  encoding="utf-8") as fd:
+            table = fd.read()
+    names = [v[0] for v in VARIANTS]
+    if [r["variant"] for r in rows] != names or \
+            table.count("\n") != 2 + len(names):
+        raise AssertionError(f"the ablation summary has {rows}, the table "
+                             f"{table!r}")
+    steps = int(ABLATION_WINDOWS * 0.7) // TRAIN_BATCH
+    attn = sum(1 for *_, over in VARIANTS if over.get("use_attention", True))
+    expect_launches(f"the ablation CLI ({len(names)} variants x "
+                    f"{ABLATION_EPOCHS} epochs x {steps} steps; "
+                    f"{attn} with attention)", launches,
+                    dict.fromkeys(TRAIN_KERNELS, 2 * steps * ABLATION_EPOCHS
+                                  * attn))
+    for r, (_, _, over) in zip(rows, VARIANTS):
+        params = sum(p.numel() for p in WiFlowPoseModel(
+            ModelConfig(**over), device=dev).parameters())
+        if r["params"] != params:
+            raise AssertionError(f"{r['variant']}: the CLI counts "
+                                 f"{r['params']} parameters, the module "
+                                 f"{params}")
+        log(f"  {r['variant']}: {r['params']} parameters, epoch "
+            f"{r['epoch_s']:.3f} s, step {r['step_ms']:.4f} ms, test PCK@10 "
+            f"{r['pck10']}%, PCK@20 {r['pck20']}%, MPJPE {r['mpjpe_m']} m")
+    log(f"  the ablation CLI ran in {wall:.2f} s and wrote the summary and "
+        f"the table of {len(rows)} variants")
+    SUMMARY.append("ablation steps ms " + ", ".join(
+        f"{r['variant']} {r['step_ms']:.2f}" for r in rows))
+
+
+def ablation_steps(dev, all_kernels, xb, yb):
+    """Phase 16 (b): one bf16 train step of each variant, its launches."""
+    from wiflow_tpu_torch.cli.ablation_demo import VARIANTS
+    from wiflow_tpu_torch.core.config import ModelConfig, OptimConfig
+    from wiflow_tpu_torch.train.steps import create_train_state, train_step
+    for name, _, over in VARIANTS:
+        cfg = ModelConfig(**over)
+        st = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
+        reset_launches(all_kernels)
+        m = train_step(st, xb, yb)
+        expect_launches(f"one {name} train step", read_launches(all_kernels),
+                        dict.fromkeys(TRAIN_KERNELS,
+                                      2 if cfg.use_attention else 0))
+        if not math.isfinite(m["loss"].item()):
+            raise AssertionError(f"{name}: the loss is not finite")
+        log(f"  {name}: {sum(p.numel() for p in st.model.parameters())} "
+            f"parameters, loss {m['loss'].item():.6f}")
+        del st
+
+
+def tcn_geometry_timings(sk, cases, gen, dev, keep):
+    """Phase 16 (d): each distinct new geometry alone, bf16."""
+    dt = torch.bfloat16
+    for c in {case_label(c): c for c in cases}.values():
+        i = stage_inputs(c, gen, dev, keep)
+        x, go = i["x"].to(dt), i["go"].to(dt)
+        args = (i["m"], i["a"], i["b"], i["mask"], i["w"], i["bias"])
+        kw = dict(kind=c["kind"], dil=c["dil"], keep=keep)
+        out, _ = sk.stage_forward(x, *args, **kw)
+
+        def fwd():
+            return sk.stage_forward(x, *args, **kw)
+
+        def bwd():
+            return sk.stage_backward(x, *args[:5], out, go, i["gs"],
+                                     has_bias=c["bias"],
+                                     need_gx=c["need_gx"], **kw)
+
+        (wf, wb) = stage_work(c, 2)
+        bf, byf = bound_ms(*wf, dt)
+        bb, byb = bound_ms(*wb, dt)
+        plain = time_ms(lambda: sk.stage_plain(x, *args, **kw),
+                        max(3, RUNS // 4))
+        log(f"    {case_label(c)}: fwd {time_ms(fwd, RUNS):.4f} ms (queued "
+            f"{queued_ms(fwd):.4f}), plain {plain:.4f}, bound {bf:.4f} "
+            f"({byf}); bwd {time_ms(bwd, RUNS):.4f} ms (queued "
+            f"{queued_ms(bwd):.4f}), bound {bb:.4f} ({byb})")
+
+
+@contextlib.contextmanager
+def replayed_masks(masks, replay):
+    """Dropout keep-masks (``ops/norm.py::_keep_mask``) recorded into
+    ``masks`` in the order a step draws them, or, with ``replay``, handed
+    out again from it, on any device: a step on the CPU then drops what
+    the same step on the card dropped."""
+    from wiflow_tpu_torch.ops import norm
+    inner, it = norm._keep_mask, iter(masks)
+
+    def keep(shape, keep_p, device, generator):
+        if replay:
+            m = next(it)
+            if tuple(m.shape) != tuple(shape):
+                raise AssertionError(f"replayed mask {tuple(m.shape)} for "
+                                     f"{tuple(shape)}")
+            return m.to(device)
+        m = inner(shape, keep_p, device, generator)
+        masks.append(m.cpu())
+        return m
+
+    norm._keep_mask = keep
+    try:
+        yield
+    finally:
+        norm._keep_mask = inner
+    if replay and next(it, None) is not None:
+        raise AssertionError("the replayed step drew fewer masks")
+
+
+@contextlib.contextmanager
+def float64_moments():
+    """Train-mode BatchNorm with its moments in the input's dtype: the
+    port's ``batch_norm_train`` takes them in fp32 whatever the input, so
+    a float64 step needs this to be float64 throughout its BatchNorms."""
+    from wiflow_tpu_torch.models import layers
+    from wiflow_tpu_torch.ops.norm import EPS, running_update
+    inner = layers.batch_norm_train
+
+    def bn(x, gamma, beta, running_mean, running_var):
+        axes = tuple(range(x.ndim - 1))
+        mean = x.mean(dim=axes)
+        var = (x * x).mean(dim=axes) - mean * mean
+        a = (gamma * torch.rsqrt(var + EPS)).to(x.dtype)
+        new_mean, new_var = running_update(
+            running_mean, running_var, mean.detach(), var.detach(),
+            x.numel() // x.shape[-1])
+        return (x - mean) * a + beta.to(x.dtype), new_mean, new_var
+
+    layers.batch_norm_train = bn
+    try:
+        yield
+    finally:
+        layers.batch_norm_train = inner
+
+
+def tcn_variants(dev, all_kernels, xb, yb, record):
+    """Phase 16 (c) and (d): ``tcn_conv`` ``plain`` and ``depthwise`` under
+    the fused switches."""
+    from wiflow_tpu_torch.core.config import ModelConfig, OptimConfig
+    from wiflow_tpu_torch.ops.kernels import stage_fused as sk
+    from wiflow_tpu_torch.train.steps import create_train_state, train_step
+    rows = {r["name"]: r for r in record}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 16)
+    xb32 = xb.float()
+    for v in TCN_VARIANTS:
+        cfg = ModelConfig(tcn_conv=v, **FUSED)
+        keep = 1.0 - cfg.dropout
+        cases = [c for b in (TRAIN_BATCH, 7)
+                 for c in sk.step_launches(cfg, b)[0]
+                 if c["kind"] == "causal3"]
+        log(f"  (c) tcn_conv={v!r}: the {len(cases)} causal3 stages of a step "
+            f"at batch {TRAIN_BATCH} and 7, each with its plan (forward / "
+            f"input gradient / weight gradient: path, groups a block, shared "
+            f"memory) in bf16 and fp32")
+        for c in cases:
+            g = sk.stage_geometry(c["kind"], c["lead"], c["ci"], c["co"],
+                                  c["groups"], c["dil"])
+            plans = [sk.stage_plan(g, dt) for dt in (torch.bfloat16,
+                                                     torch.float32)]
+            log(f"    {case_label(c)}: " + "; ".join(
+                f"{name} " + " / ".join(
+                    f"{p.path} gpb {getattr(p, 'gpb', '-')} smem {p.smem}"
+                    for p in (pl.fwd, pl.dgrad, pl.wgrad))
+                for name, pl in zip(("bf16", "fp32"), plans)))
+        errs = dict.fromkeys(STAGE_ATTRS, 0.0)
+        hold_stages(sk, cases, gen, dev, keep, errs, TRAIN_BATCH)
+        # the fused bf16 step: its launches
+        st = create_train_state(cfg, OptimConfig(), seed=SEED, device=dev)
+        stages, joins = sk.step_launches(cfg, TRAIN_BATCH)
+        reset_launches(all_kernels)
+        train_step(st, xb, yb)
+        launches = read_launches(all_kernels)
+        expect_launches(f"one fused {v} train step", launches, {
+            **dict.fromkeys(TRAIN_KERNELS, 2),
+            "stage_fwd": len(stages), "stage_bwd": len(stages),
+            "join_fwd": len(joins), "join_bwd": len(joins)})
+        del st
+        # one fp32 step with dropout on, fused vs stock ops, held to 4x the
+        # stock-op step's fp32 noise: its distance to the same step in
+        # float64 on the CPU (the card's dropout masks replayed there).
+        # The flagship's phase 9 holds twice its noise; here the fused
+        # step's own distance to float64 is ~3x the stock-op step's (its
+        # fp32 sums over the dense TCN convs are blocked otherwise), so
+        # |fused - stock| <= |fused - ref| + |stock - ref| needs 4x.  A
+        # fault of a kernel or of the wiring shows as errors of order 1.
+        kw = dict(tcn_conv=v, compute_dtype="float32")
+        masks = []
+        with replayed_masks(masks, replay=False):
+            stock = fp32_step(dev, ModelConfig(**kw), xb32, yb)
+        fused = fp32_step(dev, ModelConfig(**kw, **FUSED), xb32, yb)
+        with replayed_masks(masks, replay=True), float64_moments():
+            ref = fp32_step("cpu", ModelConfig(tcn_conv=v,
+                                               compute_dtype="float64"),
+                            xb32.double(), yb)
+
+        def dist(got):
+            return max(leaf_noise(got[1], ref[1], GRAD_FLOOR),
+                       leaf_noise(got[2], ref[2], STAT_FLOOR),
+                       leaf_noise({"g": got[0]["grad_norm"]},
+                                  {"g": ref[0]["grad_norm"]}, 0.0))
+
+        noise = dist(stock)
+        tol = max(TOL_F32, 4.0 * noise)
+        log(f"  fp32 rounding noise of one {v} step, dropout on (its distance "
+            f"to the float64 step on the CPU, {len(masks)} masks replayed): "
+            f"{noise:.3e} (the fused step's {dist(fused):.3e}); the fused "
+            f"step is held to {tol:.3e}")
+        compare_fp32_steps(f"{v} fused vs stock ops, dropout on", fused,
+                           stock, tol)
+        log(f"  (d) tcn_conv={v!r}: each new geometry alone, bf16, batch "
+            f"{TRAIN_BATCH} (CUDA events, median of {RUNS}; queued behind a "
+            f"spin)")
+        tcn_geometry_timings(sk, [c for c in cases
+                                  if c["lead"][0] == TRAIN_BATCH],
+                             gen, dev, keep)
+        for r in stage_kernel_timings(dev, cfg, launches, errs,
+                                      per_launch=False, what=f"{v} "):
+            rows[r["name"]].update({
+                f"tcn_{v}_{k}": r[k] for k in (
+                    "launches", "max_abs_err", "ms", "device_queued_ms",
+                    "plain_ms", "bound_ms", "bound_by")})
+        torch.cuda.empty_cache()
+
+
+def ablation_slice(dev, all_kernels, record):
+    """Phase 16: the ablation switches on the card."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    log(f"phase 16: the ablations on the card (default ModelConfig at full "
+        f"width, bf16, batch {TRAIN_BATCH})")
+    ablation_cli(dev, all_kernels)
+    xs, ys = train_data(dev, ModelConfig())
+    xb, yb = xs[:TRAIN_BATCH], ys[:TRAIN_BATCH]
+    log("  (b) one bf16 train step of each variant")
+    ablation_steps(dev, all_kernels, xb, yb)
+    tcn_variants(dev, all_kernels, xb, yb, record)
+    del xs, ys, xb, yb
+    torch.cuda.empty_cache()
+
+
+def done_line(text):
+    """The ``[done]`` line a CLI run printed."""
+    lines = [ln for ln in text.splitlines() if ln.startswith("[done]")]
+    if len(lines) != 1 or "nan" in lines[0].lower():
+        raise AssertionError(f"the run's [done] lines: {lines}")
+    return lines[0]
+
+
+def model_size(dev, name):
+    """A baseline's parameters, and its FLOPs a window with the FLOPs of
+    its resizes as the JAX package's count has them."""
+    from wiflow_tpu_torch.cli.run_baseline import build_model
+    from wiflow_tpu_torch.utils.flops import (
+        count_params, flop_count, resize_flops,
+    )
+    model = build_model(name, device=dev)
+    x1 = torch.zeros((1, 540, 20), device=dev)
+    return count_params(model), flop_count(model, x1), resize_flops(model,
+                                                                    x1)
+
+
+def baseline_runs(dev, all_kernels, tmp):
+    """Phase 17 (a): ``run_baseline`` for each baseline, and ``hpeli``'s
+    resume held to the run never stopped."""
+    from wiflow_tpu_torch.data.synthetic import make_preprocessed_dataset
+    # the CLI's --synthetic files (20), cut to BASELINE_FRAMES frames each:
+    # --synthetic finds them and makes none
+    data = make_preprocessed_dataset(tmp, num_files=20,
+                                     frames_per_file=BASELINE_FRAMES)
+    flags = ["--synthetic", "--data_dir", data, *BASELINE_FLAGS]
+    for name in BASELINES:
+        argv = ["--model", name, *flags, "--output_dir",
+                os.path.join(tmp, name)]
+        log(f"  (a) python -m wiflow_tpu_torch.cli.run_baseline "
+            f"{' '.join(argv)} (its main in this process)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(all_kernels)
+        text = cli_main(argv, "run_baseline")
+        expect_launches(f"run_baseline {name}", read_launches(all_kernels),
+                        {})
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        t = run_timings(text)
+        windows = int(re.search(r"\[split\] train: (\d+)", text).group(1))
+        batch = min(DEFAULT_BATCH, windows)
+        steps = windows // batch
+        params, flops, extra = model_size(dev, name)
+        log(f"  {name}: {done_line(text)}; epoch {t['epoch_s'][0]:.3f} s, "
+            f"step {1e3 * t['train_s'][0] / steps:.4f} ms, "
+            f"{steps * batch / t['train_s'][0]:.1f} training windows/s, "
+            f"peak memory {peak:.3f} GiB, {params} parameters, "
+            f"{flops / 1e9:.4f} GFLOP a window (the JAX count adds "
+            f"{extra / 1e9:.4f} G of resizes)")
+        if not os.path.exists(os.path.join(tmp, name,
+                                           "best_pose_model.msgpack")):
+            raise AssertionError(f"{name}: no best_pose_model.msgpack")
+    hp = ["--model", "hpeli", "--synthetic", "--data_dir", data,
+          "--batch_size", str(DEFAULT_BATCH), "--epochs", "2"]
+    text = cli_main([*hp, "--output_dir", os.path.join(tmp, "hpeli")],
+                    "run_baseline")
+    if "[resume] continuing from epoch 2 of 2" not in text:
+        raise AssertionError("hpeli did not resume at epoch 2")
+    cli_main([*hp, "--output_dir", os.path.join(tmp, "hpeli2")],
+             "run_baseline")
+    if not same_run(os.path.join(tmp, "hpeli"), os.path.join(tmp, "hpeli2")):
+        raise AssertionError("hpeli resumed to 2 epochs differs from the run "
+                             "never stopped")
+    log("  hpeli resumed to 2 epochs equals the 2-epoch run never stopped, "
+        "history and final weights bit for bit")
+    SUMMARY.append("hpeli resume bit-equal")
+
+
+def baseline_mmfi_runs(dev, all_kernels, tmp):
+    """Phase 17 (b): ``run_mmfi --model`` each baseline on phase 15's
+    tree, made again with ``BASELINE_MMFI_SUBJECTS``."""
+    from wiflow_tpu_torch.data.mmfi import (
+        FRAMES_PER_SEQUENCE, generate_synthetic_mmfi,
+    )
+    tree = os.path.join(tmp, "MMFi")
+    generate_synthetic_mmfi(tree, subjects=BASELINE_MMFI_SUBJECTS,
+                            actions=MMFI_ACTIONS, frames=FRAMES_PER_SEQUENCE,
+                            fmt="npy", learnable=True)
+    for name in BASELINES:
+        argv = ["--model", name, "--dataset_root", tree, "--output_dir",
+                os.path.join(tmp, f"mmfi_{name}"), "--epochs", "1",
+                *MMFI_CLI_FLAGS]
+        log(f"  (b) python -m wiflow_tpu_torch.cli.run_mmfi {' '.join(argv)} "
+            f"(its main in this process)")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_launches(all_kernels)
+        text = cli_main(argv, "run_mmfi")
+        expect_launches(f"run_mmfi --model {name}",
+                        read_launches(all_kernels), {})
+        t = run_timings(text)
+        frames = int(re.search(r"\[split\] train (\d+)", text).group(1))
+        batch = min(DEFAULT_BATCH, frames)
+        steps = frames // batch
+        log(f"  MM-Fi {name}: {done_line(text)}; step "
+            f"{1e3 * t['train_s'][0] / steps:.4f} ms, "
+            f"{steps * batch / t['train_s'][0]:.1f} training frames/s, peak "
+            f"memory {torch.cuda.max_memory_allocated(dev) / 2 ** 30:.3f} GiB")
+
+
+def baseline_table_run(dev, all_kernels, tmp):
+    """Phase 17 (c): the comparison table over the five models."""
+    out = os.path.join(tmp, "table")
+    argv = ["--windows", str(TABLE_WINDOWS), "--epochs", "1",
+            "--batch_size", str(DEFAULT_BATCH), "--output_dir", out]
+    log(f"  (c) python -m wiflow_tpu_torch.cli.baseline_table "
+        f"{' '.join(argv)} (its main in this process; no --per_model_batch: "
+        f"every model fits batch {DEFAULT_BATCH})")
+    torch.cuda.empty_cache()
+    reset_launches(all_kernels)
+    cli_main(argv, "baseline_table")
+    launches = read_launches(all_kernels)
+    n_tr = int(TABLE_WINDOWS * 0.7)
+    steps = n_tr // min(DEFAULT_BATCH, n_tr)
+    expect_launches(f"the comparison table (the wiflow row's {steps} steps)",
+                    launches, dict.fromkeys(TRAIN_KERNELS, 2 * steps))
+    with open(os.path.join(out, "comparison_summary.json"),
+              encoding="utf-8") as fd:
+        rows = json.load(fd)["rows"]
+    if [r["model"] for r in rows] != ["wiflow", *BASELINES]:
+        raise AssertionError(f"the table's rows: {[r['model'] for r in rows]}")
+    for r in rows:
+        if not r["flops_g"] or not math.isfinite(r["mpjpe_m"]):
+            raise AssertionError(f"table row {r}")
+        log(f"  table {r['model']}: step {r['step_ms']:.4f} ms, "
+            f"{r['windows_per_s']:.1f} windows/s, peak memory "
+            f"{r['peak_mem_gb']:.3f} GiB, {r['params_m']} M parameters, "
+            f"{r['flops_g']} GFLOP a window; test PCK@20 {r['pck20']}%, "
+            f"MPJPE {r['mpjpe_m']} m ({r['flops_note']})")
+    SUMMARY.append("table step ms " + ", ".join(
+        f"{r['model']} {r['step_ms']:.2f}" for r in rows))
+
+
+def baseline_slice(dev, all_kernels):
+    """Phase 17: the four baselines through their CLIs, the MM-Fi CLI and
+    the comparison table, in a temporary directory."""
+    log(f"phase 17: the baselines on the card, published widths, bf16, "
+        f"batch {DEFAULT_BATCH}")
+    with tempfile.TemporaryDirectory() as tmp:
+        baseline_runs(dev, all_kernels, tmp)
+        baseline_mmfi_runs(dev, all_kernels, tmp)
+        baseline_table_run(dev, all_kernels, tmp)
+    torch.cuda.empty_cache()
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3501,6 +3967,12 @@ def main() -> int:
     # -- phase 15: MM-Fi training on the card ---------------------------------
     mmfi_training(dev, all_kernels, train16["mmfi"], train_errs["mmfi"],
                   record)
+
+    # -- phase 16: the ablations ---------------------------------------------
+    ablation_slice(dev, all_kernels, record)
+
+    # -- phase 17: the baselines ---------------------------------------------
+    baseline_slice(dev, all_kernels)
 
     log(smi)
     log(json.dumps({"kernels": record}))

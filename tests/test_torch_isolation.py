@@ -121,6 +121,70 @@ def test_port_imports_without_what_the_card_lacks():
         assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
 
 
+# What the card lacks, and msgpack and h5py besides: the ablation and
+# baseline modules import none of them (``data/pam.py`` imports scipy and
+# h5py inside ``load_pam_mat`` only).
+BASELINE_BLOCKED = MISSING_ON_THE_CARD + ("msgpack", "h5py")
+NEW_MODULES = ("cli.ablation_demo", "cli.baseline_table", "cli.run_baseline",
+               "cli.convergence_demo", "data.pam", "models.baselines",
+               "models.baselines.convert", "models.baselines.hpeli",
+               "models.baselines.performer", "models.baselines.perunet",
+               "models.baselines.wisppn", "models.baselines.wpformer",
+               "utils.flops")
+
+
+def test_ablation_and_baseline_modules_import_without_them():
+    block = f"for name in {BLOCKED!r}:"
+    r = _run(["-c", _IMPORT_ALL.replace(
+        block, f"for name in {BLOCKED + BASELINE_BLOCKED!r}:", 1)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    for module in NEW_MODULES:
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
+
+
+_BASELINE_CLIS_WITHOUT_THEM = """
+import json, os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from wiflow_tpu_torch.cli import (
+    ablation_demo, baseline_table, run_baseline, run_mmfi,
+)
+from wiflow_tpu_torch.data.mmfi import generate_synthetic_mmfi
+from wiflow_tpu_torch.data.synthetic import make_preprocessed_dataset
+root = sys.argv[1]
+cpu = ["--device", "cpu", "--compute_dtype", "float32", "--epochs", "1"]
+data = make_preprocessed_dataset(root, num_files=8, frames_per_file=24)
+assert run_baseline.main(["--model", "hpeli", "--data_dir", data,
+                          "--output_dir", os.path.join(root, "rb"),
+                          "--batch_size", "8"] + cpu) == 0
+tree = os.path.join(root, "MMFi")
+generate_synthetic_mmfi(tree, subjects=("S01", "S02", "S11"), frames=16)
+assert run_mmfi.main(["--model", "hpeli", "--dataset_root", tree,
+                      "--output_dir", os.path.join(root, "mm"),
+                      "--no_videos"] + cpu) == 0
+small = ["--windows", "40", "--batch_size", "8"] + cpu
+assert baseline_table.main(small + ["--models", "hpeli", "--output_dir",
+                                    os.path.join(root, "bt")]) == 0
+assert ablation_demo.main(small + ["--variants", "no_attention",
+                                   "--output_dir",
+                                   os.path.join(root, "ab")]) == 0
+with open(os.path.join(root, "bt", "comparison_summary.json")) as fd:
+    print("flops", json.load(fd)["rows"][0]["flops_g"])
+print("ran", sorted(os.listdir(os.path.join(root, "rb"))))
+"""
+
+
+def test_baseline_and_ablation_clis_run_without_them(tmp_path):
+    r = _run(["-c", _BASELINE_CLIS_WITHOUT_THEM.format(
+        blocked=BLOCKED + BASELINE_BLOCKED), str(tmp_path)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert "skipped training_history.png" in r.stdout
+    assert "flops 2.153" in r.stdout
+    assert "'best_pose_model.msgpack'" in r.stdout.splitlines()[-1]
+
+
 def test_mmfi_split_and_cli_run_without_what_the_card_lacks(tmp_path):
     r = _run(["-c", _MMFI_WITHOUT_THEM.format(
         blocked=BLOCKED + MISSING_ON_THE_CARD), str(tmp_path)])
@@ -255,3 +319,20 @@ def test_train_wrappers_reject_other_devices():
         axial_attention_train.axial_core(meta, meta, meta, scale)
     with pytest.raises(ValueError, match="meta"):
         axial_attention_train.logits_sums(meta, meta, 2)
+
+
+def test_ablation_and_baseline_entry_points_need_cuda_or_an_explicit_cpu():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from wiflow_tpu_torch.cli import ablation_demo, baseline_table, run_baseline
+    from wiflow_tpu_torch.cli.convergence_demo import synth_windows
+    from wiflow_tpu_torch.models import baselines
+    for make in (baselines.HPELiNet, lambda: baselines.PerUnet(base=8),
+                 lambda: synth_windows(4, 0)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for main, argv in ((ablation_demo.main, ["--windows", "8"]),
+                       (baseline_table.main, ["--windows", "8"]),
+                       (run_baseline.main, ["--model", "hpeli"])):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(argv)

@@ -9,8 +9,12 @@ validation subjects are split 50/50 into val and test (random_state 41);
 the trainer stops early and lowers the lr on the largest val PCK
 (:1225-1247), with AdamW at weight decay 1e-4 (:1218-1221), root-relative
 metrics, and resume from ``latest_checkpoint.pkl`` in ``--output_dir``
-unless ``--no_resume``.  ``--model`` takes ``wiflow``; the four
-baselines wait for their port.
+unless ``--no_resume``.  ``--model`` takes ``wiflow`` or one of the four
+baselines re-targeted to MM-Fi (ref cross_dataset_test/): ``hpeli``
+regresses the 2-D projection of the 17 keypoints, ``wpformer`` the 3-D
+keypoints under a mask of the keypoints whose ground truth exists
+(metafi.py:750-753), ``perunet`` the 3-D keypoints, ``wisppn`` a 3x17x17
+PAM under the confidence-weighted MSE, scored on its diagonal.
 
 Usage:
   python -m wiflow_tpu_torch.cli.run_mmfi --dataset_root /data/MMFi \\
@@ -28,15 +32,21 @@ import torch
 
 from wiflow_tpu_torch.cli.run import set_seed
 from wiflow_tpu_torch.core.config import (
-    MMFI_SKELETON_CONNECTIONS, Config, OptimConfig, TrainConfig,
+    MMFI_SKELETON_CONNECTIONS, Config, OptimConfig, TrainConfig, exact_fp32,
     resolve_device,
 )
 from wiflow_tpu_torch.data.mmfi import (
     generate_synthetic_mmfi, make_dataset, split_val_test,
 )
 from wiflow_tpu_torch.eval.artifacts import write_all_artifacts
+from wiflow_tpu_torch.data.pam import (
+    keypoints_to_pam, pam_confidence_mse, pam_to_keypoints,
+)
 from wiflow_tpu_torch.metrics.mmfi_metrics import (
     root_aligned_mpjpe, root_relative_pck_fractions,
+)
+from wiflow_tpu_torch.models.baselines import (
+    HPELiMMFi, PerUnetMMFi, WiSPPN, wpformer_mmfi,
 )
 from wiflow_tpu_torch.models.wiflow_mmfi import (
     MMFiModelConfig, WiFlowMMFiModel,
@@ -54,6 +64,14 @@ DEFAULT_CONFIG = {
 }
 
 
+def metafi_masked_mse(out: torch.Tensor, yb: torch.Tensor):
+    """WPformer's MM-Fi loss: the MSE over the keypoints whose ground
+    truth exists (ref cross_dataset_test/WPformer/metafi.py:750-753)."""
+    mask = (yb.abs().sum(dim=-1, keepdim=True) > 1e-5).float()
+    loss = ((out.float() * mask - yb.float() * mask) ** 2).mean()
+    return loss, {"position": loss, "bone": torch.zeros_like(loss)}
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="WiFlow on MM-Fi (PyTorch/CUDA)")
     p.add_argument("--dataset_root", type=str, default="MMFi")
@@ -64,7 +82,7 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["wiflow", "hpeli", "wisppn", "perunet",
                             "wpformer"],
                    help="wiflow (default) or a baseline re-targeted to "
-                        "MM-Fi; the baselines are not ported yet")
+                        "MM-Fi")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -91,11 +109,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.model != "wiflow":
-        raise SystemExit(f"--model {args.model}: the MM-Fi baselines are "
-                         f"not ported yet (ROADMAP.md queue 1, item 5); "
-                         f"use --model wiflow")
     set_seed(args.seed)
+    if args.model != "wiflow":
+        exact_fp32()
     dev = resolve_device(args.device)
 
     config = dict(DEFAULT_CONFIG)
@@ -136,14 +152,36 @@ def main(argv=None) -> int:
                               plateau_patience=args.plateau_patience)),
         output_dir=args.output_dir,
     )
-    model = WiFlowMMFiModel(
-        MMFiModelConfig(compute_dtype=args.compute_dtype), device=dev,
-        generator=torch.Generator().manual_seed(args.seed))
+    # the model's labels and loss (ref cross_dataset_test/): wiflow,
+    # wpformer and perunet regress 17x3 keypoints; hpeli the 2-D
+    # projection (HPE-Li/model/HPE_no_denoiser.py); wisppn a 3x17x17 PAM
+    kwargs = dict(connections=MMFI_SKELETON_CONNECTIONS,
+                  pck_fn=root_relative_pck_fractions,
+                  mpe_fn=root_aligned_mpjpe, monitor="pck")
+    dt, gen = args.compute_dtype, torch.Generator().manual_seed(args.seed)
+    if args.model == "wiflow":
+        model = WiFlowMMFiModel(MMFiModelConfig(compute_dtype=dt),
+                                device=dev, generator=gen)
+    elif args.model == "hpeli":
+        model = HPELiMMFi(compute_dtype=dt, device=dev, generator=gen)
+        train_xy, val_xy, test_xy = ((x, y[..., :2]) for x, y in
+                                     (train_xy, val_xy, test_xy))
+    elif args.model == "wpformer":
+        model = wpformer_mmfi(dt, device=dev, generator=gen)
+        model.dropout_generator.manual_seed(args.seed)
+        kwargs.update(loss_fn=metafi_masked_mse)
+    elif args.model == "perunet":
+        model = PerUnetMMFi(compute_dtype=dt, device=dev, generator=gen)
+    else:                                        # wisppn: PAM targets
+        model = WiSPPN(input_converter="mmfi", pam_channels=3, pam_size=17,
+                       compute_dtype=dt, device=dev, generator=gen)
+        train_xy, val_xy, test_xy = ((x, keypoints_to_pam(y)) for x, y in
+                                     (train_xy, val_xy, test_xy))
+        kwargs.update(loss_fn=pam_confidence_mse,
+                      to_keypoints=pam_to_keypoints)
     result = train_pose_model(
         train_xy, val_xy, test_xy, cfg, args.output_dir, model=model,
-        resume=not args.no_resume, connections=MMFI_SKELETON_CONNECTIONS,
-        pck_fn=root_relative_pck_fractions, mpe_fn=root_aligned_mpjpe,
-        monitor="pck")
+        resume=not args.no_resume, **kwargs)
     paths = write_all_artifacts(result, args.output_dir,
                                 make_videos=not args.no_videos,
                                 connections=MMFI_SKELETON_CONNECTIONS)

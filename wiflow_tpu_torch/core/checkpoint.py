@@ -4,11 +4,13 @@ Counterpart of ``wiflow_tpu/core/checkpoint.py``, with the same file names:
 
   * ``save_best_model`` writes ``best_pose_model.pth``, a CPU
     ``state_dict`` under the reference torch names (what the reference's
-    tools ``torch.load``), and, given the model's config,
-    ``best_pose_model.msgpack`` in flax's layout, which the JAX package's
-    ``load_best_model`` reads.  ``load_best_model`` reads either file back
-    as a ``state_dict``.  The ``.msgpack`` goes through
-    ``core/flax_msgpack.py``, so neither flax nor the ``msgpack`` package
+    tools ``torch.load``), and, given the model's config or a baseline's
+    flax tree, ``best_pose_model.msgpack`` in flax's layout, which the JAX
+    package's ``load_best_model`` reads.  A model with no reference torch
+    names (a baseline, the conv2d ablation) gets the ``.msgpack`` only.
+    ``load_best_model`` reads either file back as a ``state_dict``.  The
+    ``.msgpack`` goes through ``core/flax_msgpack.py``, so neither flax
+    nor the ``msgpack`` package
     is needed.
   * ``save_checkpoint`` / ``load_checkpoint``: the resume bundle
     ``latest_checkpoint.pkl``, the port's own pickle of CPU tensors, numpy
@@ -63,16 +65,29 @@ def load_checkpoint(path: str) -> Optional[Dict[str, Any]]:
 
 
 def save_best_model(output_dir: str, state_dict: Dict[str, torch.Tensor],
-                    model_cfg=None, stem: str = "best_pose_model") -> None:
-    """Write ``{stem}.pth``, and ``{stem}.msgpack`` where ``model_cfg``
-    (``ModelConfig`` or ``MMFiModelConfig``) gives the flax layout."""
+                    model_cfg=None, stem: str = "best_pose_model", *,
+                    tree: Optional[Dict[str, Any]] = None) -> None:
+    """Write the best weights.
+
+    ``{stem}.msgpack`` in flax's layout where one is known: ``tree`` (the
+    ``{'params', 'batch_stats'}`` tree of a baseline, from
+    ``models/baselines/convert.py``) or the WiFlow model that ``model_cfg``
+    (``ModelConfig`` or ``MMFiModelConfig``) configures.  ``{stem}.pth``,
+    the ``state_dict``, where its names are the reference's: a WiFlow model
+    with ``encoder_kind == "wiflow"``, or a module with no flax layout
+    given.  So a baseline and the conv2d ablation get the ``.msgpack``
+    only, as in the JAX package (``wiflow_tpu/train/loop.py:320-325``)."""
     os.makedirs(output_dir, exist_ok=True)
     sd = to_cpu(dict(state_dict))
-    torch.save(sd, os.path.join(output_dir, f"{stem}.pth"))
-    if model_cfg is not None:
+    if tree is None and model_cfg is not None:
         tree = jax_variables_from_state_dict(sd, model_cfg)
+    if tree is not None:
         with open(os.path.join(output_dir, f"{stem}.msgpack"), "wb") as f:
             f.write(flax_msgpack.dumps(_sorted(tree)))
+    reference_names = (getattr(model_cfg, "encoder_kind", "wiflow") == "wiflow"
+                       if model_cfg is not None else tree is None)
+    if reference_names:
+        torch.save(sd, os.path.join(output_dir, f"{stem}.pth"))
 
 
 def _sorted(tree: Dict[str, Any]) -> Dict[str, Any]:

@@ -7,8 +7,13 @@ config module is not imported: importing anything under ``wiflow_tpu``
 runs its package ``__init__``, which loads JAX.  Of the config's lowering
 switches only ``tcn_train_impl`` and ``conv_train_impl`` have a
 counterpart: they select the stage-fused train path
-(``ops/kernels/stage_fused.py``).  The serving path's choice of attention
-kernel is, as in the reference, not a config field but the
+(``ops/kernels/stage_fused.py``).  The ablation switches ``tcn_conv``
+(``grouped``, ``plain`` or ``depthwise`` TCN convs), ``encoder_kind``
+(``wiflow`` or the ``conv2d`` residual encoder) and ``use_attention``
+shape the module (``models/wiflow.py``); the serving kernels of
+``models/fast.py`` take only the default architecture.  The serving
+path's choice of attention kernel is, as in the reference, not a config
+field but the
 ``attention_impl`` argument of ``models/fast.py::fast_forward`` (``"v2"``,
 ``"dual"`` or ``"v1"``).  The others (``attention_module_impl``,
 ``rng_impl``, ``scan_epochs``,
@@ -52,6 +57,17 @@ MMFI_SKELETON_CONNECTIONS: Tuple[Tuple[int, int], ...] = (
 
 
 TRAIN_IMPLS = ("xla", "fused", "auto")
+TCN_CONVS = ("grouped", "plain", "depthwise")
+ENCODER_KINDS = ("wiflow", "conv2d")
+
+
+def tcn_conv_groups(tcn_conv: str, groups: int, channels: int) -> int:
+    """Groups of a TCN k=3 conv over ``channels`` under the ``tcn_conv``
+    switch: ``groups`` for ``"grouped"``, 1 for ``"plain"``, ``channels``
+    for ``"depthwise"`` (``wiflow_tpu/models/wiflow.py::TCNLevel._groups``)."""
+    if tcn_conv not in TCN_CONVS:
+        raise ValueError(f"tcn_conv={tcn_conv!r}: one of {TCN_CONVS}")
+    return {"grouped": groups, "plain": 1, "depthwise": channels}[tcn_conv]
 
 
 def use_fused(impl: str, device: torch.device) -> bool:
@@ -104,12 +120,23 @@ class ModelConfig:
     # mode ignores both.
     tcn_train_impl: str = "xla"
     conv_train_impl: str = "xla"
+    # ablation switches (ref README.md:240-248): the TCN's k=3 convs
+    # 'grouped' (tcn_groups), 'plain' (one group) or 'depthwise' (a group
+    # a channel); the encoder 'wiflow' (TCN + (1,3) conv stack) or
+    # 'conv2d' (a pointwise projection and symmetric 3x3 residual blocks);
+    # the dual axial attention on or off
+    tcn_conv: str = "grouped"
+    encoder_kind: str = "wiflow"
+    use_attention: bool = True
 
     def __post_init__(self):
-        for name in ("tcn_train_impl", "conv_train_impl"):
-            if getattr(self, name) not in TRAIN_IMPLS:
+        for name, allowed in (("tcn_train_impl", TRAIN_IMPLS),
+                              ("conv_train_impl", TRAIN_IMPLS),
+                              ("tcn_conv", TCN_CONVS),
+                              ("encoder_kind", ENCODER_KINDS)):
+            if getattr(self, name) not in allowed:
                 raise ValueError(f"{name}={getattr(self, name)!r}: one of "
-                                 f"{TRAIN_IMPLS}")
+                                 f"{allowed}")
 
     @property
     def dtype(self) -> torch.dtype:
@@ -206,6 +233,15 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}; use 'cuda' or 'cpu'")
     return dev
+
+
+def exact_fp32() -> None:
+    """Full-precision fp32 products and convolutions on the card: no TF32
+    (which cuDNN takes for fp32 convolutions by default).  The JAX
+    baselines convolve at ``Precision.HIGHEST``; the entry points that
+    train a baseline call this.  bf16 work is unaffected."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def device_constant(values, device: torch.device,

@@ -89,8 +89,19 @@ def pack_fast(weights: Mapping[str, Any], config: ModelConfig = ModelConfig(),
     (the port module's ``state_dict()``, or ``core/checkpoint.py``'s
     ``load_best_model``) or the JAX ``{'params', 'batch_stats'}`` tree as
     numpy arrays.  ``device`` defaults to CUDA; pass ``"cpu"`` for the CPU.
+    A ``config`` with an ablation switch (``tcn_conv``, ``encoder_kind``,
+    ``use_attention``) off its default raises ``ValueError``: the serving
+    kernels take the default architecture only, as in the JAX package.
     """
     cfg = config
+    for name, default in (("tcn_conv", "grouped"), ("encoder_kind", "wiflow"),
+                          ("use_attention", True)):
+        if getattr(cfg, name) != default:
+            raise ValueError(
+                f"pack_fast serves the default architecture only: "
+                f"{name}={getattr(cfg, name)!r} (the serving kernels take "
+                f"{name}={default!r}); run the ablation variant through "
+                f"WiFlowPoseModel in eval mode")
     dev = resolve_device(device)
     sd = _reference_state_dict(weights, cfg)
     dt = cfg.dtype

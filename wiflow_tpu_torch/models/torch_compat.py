@@ -14,7 +14,10 @@ functions — name reshuffling and transposes only:
   3x3 Conv2d       (3, 3, Ci, Co)     -> (Co, Ci, 3, 3)
 
 ``jax_variables_from_state_dict`` goes the other way, for the
-``best_pose_model.msgpack`` the trainer writes in flax's layout.
+``best_pose_model.msgpack`` the trainer writes in flax's layout.  Both
+follow the ablation switches of ``ModelConfig``; the conv2d encoder has no
+reference torch names and uses the port's own (``encoder2d.proj``,
+``encoder2d.blocks.{j}.conv1`` ...).
 """
 
 from __future__ import annotations
@@ -58,20 +61,21 @@ def _ident(w: np.ndarray) -> np.ndarray:
     return w
 
 
-def _grouped(w: np.ndarray, groups: int) -> np.ndarray:
+def _grouped(w: np.ndarray) -> np.ndarray:
+    # a TCN k=3 conv maps C channels to C, so its groups are C / (C / G)
     co, ci_g, k = w.shape
+    groups = co // ci_g
     return w.reshape(groups, co // groups, ci_g, k).transpose(3, 0, 2, 1)
 
 
-# torch -> flax, by the spec's flax -> torch function; the grouped conv's
-# also takes the group count
-_FORWARD: Dict[Callable, Callable[[np.ndarray, int], np.ndarray]] = {
+# torch -> flax, by the spec's flax -> torch function
+_FORWARD: Dict[Callable, Callable[[np.ndarray], np.ndarray]] = {
     _grouped_inv: _grouped,
-    _pw1d_inv: lambda w, g: w[:, :, 0].T,
-    _conv1x3_inv: lambda w, g: w[:, :, 0, :].transpose(2, 1, 0),
-    _conv1x1_inv: lambda w, g: w[:, :, 0, 0].T,
-    _conv3x3_inv: lambda w, g: w.transpose(2, 3, 1, 0),
-    _ident: lambda w, g: w,
+    _pw1d_inv: lambda w: w[:, :, 0].T,
+    _conv1x3_inv: lambda w: w[:, :, 0, :].transpose(2, 1, 0),
+    _conv1x1_inv: lambda w: w[:, :, 0, 0].T,
+    _conv3x3_inv: lambda w: w.transpose(2, 3, 1, 0),
+    _ident: lambda w: w,
 }
 
 
@@ -144,10 +148,37 @@ def _attention_specs(torch_name: str) -> List[Spec]:
     return specs
 
 
+def _encoder2d_specs(n_blocks: int) -> List[Spec]:
+    """The conv2d ablation encoder: flax ``encoder2d/proj_weight``,
+    ``block{j}_*`` under the port's own names (the reference has none)."""
+    fp = ("encoder2d",)
+    specs: List[Spec] = [("encoder2d.proj.weight", "params",
+                          fp + ("proj_weight",), _pw1d_inv)]
+    specs += _bn_specs("encoder2d.proj_bn", fp + ("proj_bn",))
+    for j in range(n_blocks):
+        tp, fb = f"encoder2d.blocks.{j}", f"block{j}_"
+        for conv in ("conv1", "conv2"):
+            specs += [(f"{tp}.{conv}.weight", "params",
+                       fp + (f"{fb}{conv}_weight",), _conv3x3_inv),
+                      (f"{tp}.{conv}.bias", "params",
+                       fp + (f"{fb}{conv}_bias",), _ident)]
+        specs.append((f"{tp}.down.weight", "params", fp + (f"{fb}down_weight",),
+                      _conv1x1_inv))
+        for bn in ("bn1", "bn2", "down_bn"):
+            specs += _bn_specs(f"{tp}.{bn}", fp + (f"{fb}{bn}",))
+    return specs
+
+
 def wiflow_spec(cfg: ModelConfig = ModelConfig()) -> List[Spec]:
-    specs = _tcn_specs(cfg.num_subcarriers, cfg.tcn_channels)
-    specs += _conv_stack_specs(len(cfg.conv_channels))
-    specs += _attention_specs("attention")
+    """Spec of the flagship model, or of the ablation variant that
+    ``cfg``'s ``tcn_conv``, ``encoder_kind`` and ``use_attention`` give."""
+    if cfg.encoder_kind == "conv2d":
+        specs = _encoder2d_specs(len(cfg.conv_channels) + 1)
+    else:
+        specs = _tcn_specs(cfg.num_subcarriers, cfg.tcn_channels)
+        specs += _conv_stack_specs(len(cfg.conv_channels))
+    if cfg.use_attention:
+        specs += _attention_specs("attention")
     specs += [
         ("decoder.0.weight", "params", ("decoder_conv1_weight",),
          _conv3x3_inv),
@@ -240,7 +271,7 @@ def jax_variables_from_state_dict(
         for key in path[:-1]:
             node = node.setdefault(key, {})
         node[path[-1]] = np.ascontiguousarray(
-            _FORWARD[inv](arr.astype(np.float32), cfg.tcn_groups))
+            _FORWARD[inv](arr.astype(np.float32)))
     return out
 
 

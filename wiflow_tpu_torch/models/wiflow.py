@@ -23,6 +23,13 @@ BN-apply -> SiLU -> dropout -> conv, which also sums the next BN's
 moments, and one ``join`` per residual tail.  The parameters, buffers,
 dropout draws and values are those of the stock-op path; eval mode
 ignores the switches.
+
+The ablation switches of ``ModelConfig`` (ref README.md:240-248) shape
+the module: ``tcn_conv`` sets the TCN's k=3 convs' groups (``plain``: 1,
+``depthwise``: one a channel; the fused stages read them from the
+weights), ``encoder_kind="conv2d"`` puts :class:`Conv2dResEncoder` in place
+of the TCN and the conv stack (stock ops only, in both modes), and
+``use_attention=False`` leaves out the attention and its weights.
 """
 
 from __future__ import annotations
@@ -30,10 +37,11 @@ from __future__ import annotations
 import math
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from wiflow_tpu_torch.core.config import (
-    ModelConfig, resolve_device, use_fused,
+    ModelConfig, resolve_device, tcn_conv_groups, use_fused,
 )
 from wiflow_tpu_torch.models.layers import (
     TorchBatchNorm, TorchDropout, TorchDropout2d, silu,
@@ -55,20 +63,26 @@ class TCNLevel(nn.Module):
     def __init__(self, n_in: int, n_out: int, kernel_size: int,
                  dilation: int, groups: int, dropout: float = 0.0,
                  generator: torch.Generator | None = None, *, device=None,
-                 fused: bool = False):
+                 fused: bool = False, groups_out: int | None = None):
+        """``groups``: the groups of ``conv1_group`` (over ``n_in``
+        channels); ``groups_out``: those of ``conv2_group`` (over
+        ``n_out``), ``groups`` when None.  The ablations give the two
+        their own: 1 each for ``tcn_conv="plain"``, the channel count for
+        ``"depthwise"``."""
         super().__init__()
         if fused and kernel_size != 3:
             raise ValueError(f"the fused train path takes tcn_kernel_size 3, "
                              f"got {kernel_size}")
-        self.dilation, self.groups, self.fused = dilation, groups, fused
+        self.dilation, self.fused = dilation, fused
         k = kernel_size
         self.conv1_group = nn.Conv1d(n_in, n_in, k, groups=groups,
                                      bias=False, device=device)
         self.bn1_group = TorchBatchNorm(n_in, device=device)
         self.conv1_pw = nn.Conv1d(n_in, n_out, 1, bias=False, device=device)
         self.bn1_pw = TorchBatchNorm(n_out, device=device)
-        self.conv2_group = nn.Conv1d(n_out, n_out, k, groups=groups,
-                                     bias=False, device=device)
+        self.conv2_group = nn.Conv1d(
+            n_out, n_out, k, groups=groups if groups_out is None
+            else groups_out, bias=False, device=device)
         self.bn2_group = TorchBatchNorm(n_out, device=device)
         self.conv2_pw = nn.Conv1d(n_out, n_out, 1, bias=False, device=device)
         self.bn2_pw = TorchBatchNorm(n_out, device=device)
@@ -116,12 +130,14 @@ class TCNLevel(nn.Module):
         else:
             res = x
         out = causal_grouped_conv1d(x, self.conv1_group.weight,
-                                    dilation=self.dilation, groups=self.groups)
+                                    dilation=self.dilation,
+                                    groups=self.conv1_group.groups)
         out = silu(self.bn1_group(out))
         out = self.dropout1(silu(self.bn1_pw(
             pointwise_conv1d(out, self.conv1_pw.weight))))
         out = causal_grouped_conv1d(out, self.conv2_group.weight,
-                                    dilation=self.dilation, groups=self.groups)
+                                    dilation=self.dilation,
+                                    groups=self.conv2_group.groups)
         out = silu(self.bn2_group(out))
         out = self.dropout2(silu(self.bn2_pw(
             pointwise_conv1d(out, self.conv2_pw.weight))))
@@ -134,14 +150,18 @@ class TCNStack(nn.Module):
     def __init__(self, num_inputs: int, num_channels, kernel_size: int,
                  groups: int, dropout: float = 0.0,
                  generator: torch.Generator | None = None, *, device=None,
-                 train_impl: str = "xla"):
+                 train_impl: str = "xla", conv_kind: str = "grouped"):
+        """``conv_kind``: the k=3 convs' groups, ``"grouped"`` (``groups``),
+        ``"plain"`` (1) or ``"depthwise"`` (one a channel)."""
         super().__init__()
         fused = use_fused(train_impl, torch.device(device or "cpu"))
         levels, n_in = [], num_inputs
         for i, n_out in enumerate(num_channels):
-            levels.append(TCNLevel(n_in, n_out, kernel_size, 2 ** i, groups,
-                                   dropout, generator, device=device,
-                                   fused=fused))
+            levels.append(TCNLevel(
+                n_in, n_out, kernel_size, 2 ** i,
+                tcn_conv_groups(conv_kind, groups, n_in), dropout, generator,
+                device=device, fused=fused,
+                groups_out=tcn_conv_groups(conv_kind, groups, n_out)))
             n_in = n_out
         self.network = nn.Sequential(*levels)
 
@@ -215,6 +235,70 @@ class ConvBlock(nn.Module):
             if i < 8:
                 out = self.block[i + 3](silu(out))
         return silu(out + identity)
+
+
+class Conv2dResBlock(nn.Module):
+    """One symmetric 3x3 residual block of :class:`Conv2dResEncoder`:
+    conv (stride ``(1, stride)``) -> BN -> SiLU -> conv -> BN, plus a
+    strided 1x1 conv + BN shortcut, finished with SiLU."""
+
+    def __init__(self, n_in: int, n_out: int, stride: int, *, device=None):
+        super().__init__()
+        self.stride = stride
+        self.conv1 = nn.Conv2d(n_in, n_out, 3, stride=(1, stride), padding=1,
+                               device=device)
+        self.bn1 = TorchBatchNorm(n_out, device=device)
+        self.conv2 = nn.Conv2d(n_out, n_out, 3, padding=1, device=device)
+        self.bn2 = TorchBatchNorm(n_out, device=device)
+        self.down = nn.Conv2d(n_in, n_out, 1, bias=False, device=device)
+        self.down_bn = TorchBatchNorm(n_out, device=device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, H, W, C_in]`` -> ``[B, H, ceil(W / stride), C_out]``."""
+        identity = self.down_bn(conv1x1_2d(x, self.down.weight,
+                                           stride_w=self.stride))
+        c = self.conv1
+        y = F.conv2d(x.movedim(-1, 1), c.weight.to(x.dtype),
+                     c.bias.to(x.dtype), stride=(1, self.stride), padding=1)
+        y = silu(self.bn1(y.movedim(1, -1)))
+        y = self.bn2(conv3x3_2d(y, self.conv2.weight, self.conv2.bias))
+        return silu(y + identity)
+
+
+class Conv2dResEncoder(nn.Module):
+    """The ablation encoder 'TCN + asym conv -> 2D res conv' (ref
+    README.md:246; ``wiflow_tpu/models/wiflow.py::Conv2dResEncoder``).
+
+    The reference publishes the row and no code; the JAX package's design
+    is kept: a pointwise projection ``num_subcarriers -> tcn_channels[-1]``
+    + BN + SiLU in place of the TCN, then symmetric 3x3 residual blocks
+    with the conv stack's channels and stride schedule (``(1, 1)``, then
+    ``(1, 2)`` each), giving the ``[B, T, num_keypoints, C]`` map that the
+    attention takes.  Its names are the port's own (the reference has no
+    torch names for it): ``proj``, ``proj_bn`` and ``blocks.{j}``.
+    """
+
+    def __init__(self, cfg: ModelConfig, *, device=None):
+        super().__init__()
+        w0 = cfg.tcn_channels[-1]
+        self.proj = nn.Conv1d(cfg.num_subcarriers, w0, 1, bias=False,
+                              device=device)
+        self.proj_bn = TorchBatchNorm(w0, device=device)
+        chans = (cfg.conv_channels[0],) + tuple(cfg.conv_channels)
+        blocks, n_in = [], 1
+        for j, n_out in enumerate(chans):
+            blocks.append(Conv2dResBlock(n_in, n_out, 1 if j == 0 else 2,
+                                         device=device))
+            n_in = n_out
+        self.blocks = nn.ModuleList(blocks)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """``x [B, T, C]`` -> ``[B, T, num_keypoints, C_last]``."""
+        x = silu(self.proj_bn(pointwise_conv1d(x, self.proj.weight)))
+        x = x[..., None]
+        for blk in self.blocks:
+            x = blk(x)
+        return x
 
 
 class AxialAttention(nn.Module):
@@ -326,22 +410,29 @@ class WiFlowPoseModel(nn.Module):
         cfg = self.config = config
         dev = resolve_device(device)
         gen = self.dropout_generator = torch.Generator(device=dev)
-        self.tcn = TCNStack(cfg.num_subcarriers, tuple(cfg.tcn_channels),
-                            cfg.tcn_kernel_size, cfg.tcn_groups, cfg.dropout,
-                            gen, device=dev, train_impl=cfg.tcn_train_impl)
         chans = tuple(cfg.conv_channels)
-        fused = use_fused(cfg.conv_train_impl, dev)
-        self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen, device=dev,
-                            fused=fused)
-        blocks, n_in = [], chans[0]
-        for n_out in chans:
-            blocks.append(ConvBlock(n_in, n_out, 2, cfg.conv_dropout, gen,
-                                    device=dev, fused=fused))
-            n_in = n_out
-        self.residual_blocks = nn.ModuleList(blocks)
+        if cfg.encoder_kind == "conv2d":
+            self.encoder2d = Conv2dResEncoder(cfg, device=dev)
+        else:
+            self.tcn = TCNStack(cfg.num_subcarriers, tuple(cfg.tcn_channels),
+                                cfg.tcn_kernel_size, cfg.tcn_groups,
+                                cfg.dropout, gen, device=dev,
+                                train_impl=cfg.tcn_train_impl,
+                                conv_kind=cfg.tcn_conv)
+            fused = use_fused(cfg.conv_train_impl, dev)
+            self.up = ConvBlock(1, chans[0], 1, cfg.conv_dropout, gen,
+                                device=dev, fused=fused)
+            blocks, n_in = [], chans[0]
+            for n_out in chans:
+                blocks.append(ConvBlock(n_in, n_out, 2, cfg.conv_dropout, gen,
+                                        device=dev, fused=fused))
+                n_in = n_out
+            self.residual_blocks = nn.ModuleList(blocks)
         c = chans[-1]
-        self.attention = DualAxialAttention(c, cfg.attention_groups,
-                                            device=dev)
+        # the ablation '- axial attention' (ref README.md:248) has none
+        self.attention = (DualAxialAttention(c, cfg.attention_groups,
+                                             device=dev)
+                          if cfg.use_attention else None)
         self.decoder = nn.Sequential(
             nn.Conv2d(c, 32, 3, padding=1, device=dev),
             TorchBatchNorm(32, device=dev), nn.SiLU(),
@@ -361,13 +452,18 @@ class WiFlowPoseModel(nn.Module):
                 f"WiFlowPoseModel expects [B, {cfg.num_subcarriers}, "
                 f"{cfg.window_size}] CSI windows, got {tuple(x.shape)}")
         x = x.to(cfg.dtype).transpose(1, 2)               # [B, T, C]
-        if self.training and self.tcn.network[0].fused:
-            x = x.contiguous()        # once, for the stages that read it
-        x = self.tcn(x)[..., None]                        # [B, T, 240, 1]
-        x = self.up(x)
-        for blk in self.residual_blocks:
-            x = blk(x)                                    # [B, T, 15, C]
-        x = self.attention(x.transpose(1, 2))             # [B, 15, T, C]
+        if cfg.encoder_kind == "conv2d":
+            x = self.encoder2d(x)                         # [B, T, 15, C]
+        else:
+            if self.training and self.tcn.network[0].fused:
+                x = x.contiguous()    # once, for the stages that read it
+            x = self.tcn(x)[..., None]                    # [B, T, 240, 1]
+            x = self.up(x)
+            for blk in self.residual_blocks:
+                x = blk(x)                                # [B, T, 15, C]
+        x = x.transpose(1, 2)                             # [B, 15, T, C]
+        if self.attention is not None:
+            x = self.attention(x)
         d = self.decoder
         x = silu(d[1](conv3x3_2d(x, d[0].weight, d[0].bias)))
         x = silu(d[4](conv1x1_2d(x, d[3].weight, d[3].bias)))

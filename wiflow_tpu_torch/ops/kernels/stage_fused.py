@@ -53,6 +53,7 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from wiflow_tpu_torch.core.config import tcn_conv_groups
 from wiflow_tpu_torch.ops.kernels.build import (
     SMEM_LIMIT, CudaKernel, check_tensor, dtype_code, ptr, stream_ptr,
 )
@@ -534,9 +535,14 @@ def step_launches(cfg, batch: int):
     ``ModelConfig`` (the TCN reads ``num_subcarriers`` channels and the
     conv stack its last level's) or an ``MMFiModelConfig`` (the TCN reads
     ``input_channels``, 342, and the conv stack the projection's
-    ``tcn_proj_channels``, 272)."""
-    t, g = cfg.window_size, cfg.tcn_groups
+    ``tcn_proj_channels``, 272).  The TCN's k=3 convs take the groups of
+    ``cfg.tcn_conv`` where the config has that switch."""
+    t, kind = cfg.window_size, getattr(cfg, "tcn_conv", "grouped")
     stages, joins = [], []
+
+    def groups(c):
+        return tcn_conv_groups(kind, cfg.tcn_groups, c)
+
 
     def stage(kind, lead, ci, co, groups=1, dil=1, pro=False, mask=None,
               bias=False, need_gx=True):
@@ -549,9 +555,11 @@ def step_launches(cfg, batch: int):
         lead, first = (batch, t), i == 0
         if cin != cout:
             stage("identity", lead, cin, cout, need_gx=not first)
-        stage("causal3", lead, cin, cin, g, 2 ** i, need_gx=not first)
+        stage("causal3", lead, cin, cin, groups(cin), 2 ** i,
+              need_gx=not first)
         stage("identity", lead, cin, cout, pro=True)
-        stage("causal3", lead, cout, cout, g, 2 ** i, pro=True, mask="element")
+        stage("causal3", lead, cout, cout, groups(cout), 2 ** i, pro=True,
+              mask="element")
         stage("identity", lead, cout, cout, pro=True)
         joins.append(dict(lead=lead, c=cout, mask="element",
                           res_norm=cin != cout, act_h=True))

@@ -91,11 +91,19 @@ class TrainResult:
     timings: Dict[str, list] = dataclasses.field(default_factory=dict)
 
 
-def _stage(data: Tuple[np.ndarray, np.ndarray], device: torch.device,
+def _stage(data, device: torch.device,
            dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A split ``(x, y)`` on ``device``: ``x`` in ``dtype``, ``y`` in fp32.
+    Tensors (on any device, in any dtype: ``cli/convergence_demo.py``'s
+    bf16 windows on the card) go there directly, with no host round trip;
+    anything else goes through numpy."""
+    def put(a, dt):
+        if not torch.is_tensor(a):
+            a = torch.as_tensor(np.asarray(a))
+        return a.to(device, dt)
+
     x, y = data
-    return (torch.as_tensor(np.asarray(x)).to(device, dtype),
-            torch.as_tensor(np.asarray(y), dtype=torch.float32).to(device))
+    return put(x, dtype), put(y, torch.float32)
 
 
 def _host(m: Dict[str, torch.Tensor]) -> Dict[str, np.ndarray]:
@@ -124,14 +132,17 @@ def train_pose_model(
 ) -> TrainResult:
     """Train, validate with early stopping, then test with the best weights.
 
-    Each split is a pair ``(x, y)`` of numpy arrays: ``x [N, 540, 20]``,
+    Each split is a pair ``(x, y)`` of numpy arrays or tensors (a tensor
+    goes to the model's device without a host round trip): ``x [N, 540, 20]``,
     ``y [N, 15, 2]`` for ``WiFlowPoseModel``, and ``x [N, 3, 114, 10]``,
     ``y [N, 17, 3]`` for ``WiFlowMMFiModel`` (``cli/run_mmfi.py``).
     ``output_dir``: where the best weights and the resume bundle go; None
     keeps everything in memory (no files, no resume).  ``model``: a module
     to train in place of ``WiFlowPoseModel(cfg.model)``, on its own device
     (``device`` is then ignored); the ``.msgpack`` of the best weights is
-    written for the port's two WiFlow modules only.  The hooks are
+    written for the port's two WiFlow modules and for a module with a
+    ``flax_variables(state_dict)`` method (the baselines), the ``.pth``
+    where the names are the reference's (``core/checkpoint.py``).  The hooks are
     ``make_step_fns``'s (the MM-Fi CLI passes the MM-Fi skeleton,
     root-relative PCK and root-aligned MPJPE).
     ``monitor``: ``"mpe"`` (val MPE, mode min) or ``"pck"`` (val PCK@0.2,
@@ -195,10 +206,12 @@ def train_pose_model(
         "epoch_s", "train_s", "enqueue_s", "bundle_s", "best_s")}
     best: Optional[Dict[str, torch.Tensor]] = None
     start_epoch = 0
-    # the .msgpack needs the flax layout, which only the port's own
-    # WiFlow modules have
+    # the .msgpack needs the flax layout: the WiFlow modules' spec or a
+    # baseline's converter; the .pth the reference names (save_best_model)
     export_cfg = (model.config if isinstance(
         model, (WiFlowPoseModel, WiFlowMMFiModel)) else None)
+    export_tree = (None if export_cfg is not None
+                   else getattr(model, "flax_variables", None))
 
     ckpt_path = (os.path.join(output_dir, "latest_checkpoint.pkl")
                  if output_dir else None)
@@ -290,7 +303,8 @@ def train_pose_model(
                     for k, v in model.state_dict().items()}
             if output_dir:
                 t_save = time.time()
-                save_best_model(output_dir, best, export_cfg)
+                tree = export_tree(best) if export_tree else None
+                save_best_model(output_dir, best, export_cfg, tree=tree)
                 timings["best_s"].append(time.time() - t_save)
             if verbose:
                 print(f"  [best] val {monitor} {monitored:.4f}"
