@@ -232,10 +232,30 @@ Phases (any failure exits nonzero; nothing is caught):
    over all five models at 2,048 windows, 1 epoch, batch 64: a FLOPs cell in every row, the
    attention train kernels launched twice a step of the ``wiflow`` row, and
    each row's step ms, windows/s, peak memory, parameters and FLOPs a
-   window printed.
+   window printed;
+18. the robustness kit (HPE-Li's zoo, the stacked denoising AEs, the
+   robustness CLIs): (a) the five zoo models and ``DenoiserHPE`` at 1 and
+   5 stages on the card against the port on the CPU from the same weights
+   (fp32, TF32 off, 1e-4), ``DenoiserHPE`` in bf16 against fp32 (2e-2);
+   (b) ``MultiAxisAttention`` and its antialiased resize likewise; (c) the
+   torch noise functions' statistics on the card; (d) each zoo model's and
+   ``DenoiserHPE``'s train step at batch 32 (the CLI's) and 256: ms,
+   windows/s, peak memory; (e) the AE's 5 greedy stages at MM-Fi's shape,
+   1 epoch each, each frozen prefix unchanged bit for bit, each stage's
+   epoch seconds; (f) ``cli.run_robustness`` in modes 0 (``original_hpe``),
+   1 (``denoiser_hpe``, 2 stages) and 2 (Gaussian filter; its filter time
+   on each split printed) on the CLI's learnable MM-Fi tree at 297 frames
+   a sequence, ``dsknet_trans_wipose`` on synthetic WiPose, and
+   ``cli.robustness_demo`` at one level for 2 epochs, each in this process
+   with every launch count 0 (no kernel of the repository is on their
+   paths); (g) ``evaluate_robustness`` over the flagship's
+   ``fast_forward`` (bf16, seeded weights) with the Gaussian cleaner at
+   levels 0.0 and 0.1 over 4,096 windows: level 0.0 must equal the same
+   predictions evaluated directly, and rows 1-3 must launch 4, 1 and 2
+   times a batch; the phase's wall clock.
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases; phases 14-17 run last.
+run after phase 4, before the training phases; phases 14-18 run last.
 The last lines are the card's name and power limit, the kernels' JSON
 record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys, rows 10-13
 ``tcn_plain_*`` and ``tcn_depthwise_*`` keys), a summary
@@ -377,6 +397,26 @@ BASELINE_FLAGS = ["--batch_size", str(DEFAULT_BATCH), "--epochs", "1"]
 BASELINE_FRAMES = 100
 BASELINE_MMFI_SUBJECTS = MMFI_SUBJECTS[:4]
 TABLE_WINDOWS = 2048
+
+
+# Phase 18: the robustness kit.  The zoo's models and DenoiserHPE (5
+# stages, as the CLI builds it) stepped at the CLI's batch and at the
+# train step's; the AE's 5 greedy stages on 2,048 random windows of
+# MM-Fi's shape, 1 epoch each; the robustness CLI on its learnable tree
+# at MM-Fi's 297 frames a sequence (4 subjects x 2 actions: 2,376
+# frames), 2 epochs a run; the demo at one level, 2 epochs, on its own
+# tree of 100 frames a sequence; the flagship's serving path swept over
+# 4,096 windows at batch 256.  Cut for the script's time: windows,
+# frames and epochs (the reference: MM-Fi's 40 x 27 sequences, 60
+# epochs), never widths.
+ROBUST_MODELS = ("original_hpe", "basic_cnn", "dsknet_trans", "hpe_wipose",
+                 "dsknet_trans_wipose", "denoiser_hpe")
+ROBUST_BATCHES = (32, TRAIN_BATCH)
+ROBUST_STEPS = 10
+AE_WINDOWS = 2048
+ROBUST_CLI = ["--epochs", "2", "--synthetic", "--synthetic_learnable",
+              "--synthetic_frames", "297", "--no_resume"]
+SWEEP_WINDOWS = 4096
 
 
 # Short readings of the run, printed together just before the last line,
@@ -3933,6 +3973,307 @@ def baseline_slice(dev, all_kernels):
         baseline_table_run(dev, all_kernels, tmp)
     torch.cuda.empty_cache()
 
+def zoo_model(name, device, stages=5, dtype="bfloat16"):
+    """A robustness model as ``cli/run_robustness.py`` builds it (seed
+    ``SEED``); ``denoiser_hpe`` with ``stages`` and ``dtype``."""
+    from wiflow_tpu_torch.cli.run_robustness import build_model
+    from wiflow_tpu_torch.robustness import DenoiserHPE
+    if name == "denoiser_hpe":
+        return DenoiserHPE(stages, compute_dtype=dtype, device=device,
+                           generator=torch.Generator().manual_seed(SEED))
+    return build_model(name, device=device, seed=SEED)
+
+
+def zoo_batch(name, batch, dev):
+    """Random CSI of the model's dataset and keypoints with a unit
+    confidence column, on the card."""
+    k, shape = (18, (9, 30, 5)) if "wipose" in name else (17, (3, 114, 10))
+    g = torch.Generator(device=dev).manual_seed(SEED + batch)
+    x = torch.randn((batch, *shape), generator=g, device=dev)
+    y = torch.cat([0.1 * torch.randn((batch, k, 2), generator=g, device=dev),
+                   torch.ones((batch, k, 1), device=dev)], dim=-1)
+    return x, y
+
+
+@torch.no_grad()
+def zoo_on_card(dev):
+    """Phase 18 (a)-(c): each model on the card against the port on the
+    CPU from the same weights (fp32, TF32 off), DenoiserHPE in bf16 against
+    fp32, MultiAxisAttention and its antialiased resize, and the torch
+    noise functions' statistics."""
+    from wiflow_tpu_torch.models.baselines.sknet_trans import (
+        MultiAxisAttention, resize_rows,
+    )
+    from wiflow_tpu_torch.robustness import (
+        add_awgn_torch, add_salt_and_pepper_torch,
+    )
+    cases = [(n, 5) for n in ROBUST_MODELS[:-1]] + [("denoiser_hpe", 1),
+                                                    ("denoiser_hpe", 5)]
+    for name, stages in cases:
+        cpu = zoo_model(name, "cpu", stages, "float32")
+        nontrivial_stats(cpu)
+        card = zoo_model(name, dev, stages, "float32")
+        card.load_state_dict(cpu.state_dict())
+        x, _ = zoo_batch(name, 16, dev)
+        ref = cpu(x.cpu())
+        got = card(x)
+        err = compare(f"{name} ({stages} stages)" if name == "denoiser_hpe"
+                      else name, got.cpu(), ref, TOL_F32)
+        log(f"  (a) {name}{f' {stages} stages' if stages != 5 else ''}: "
+            f"card vs CPU fp32 {err:.3e} x max|ref|")
+        if name == "denoiser_hpe":
+            bf = zoo_model(name, dev, stages, "bfloat16")
+            bf.load_state_dict(cpu.state_dict())
+            err = compare(f"denoiser_hpe {stages} bf16", bf(x), got, TOL_BF16)
+            log(f"  (a) denoiser_hpe {stages} stages: bf16 vs fp32 on the "
+                f"card {err:.3e} x max|ref|")
+    gen = torch.Generator().manual_seed(SEED)
+    cpu = MultiAxisAttention(3, 64, depth=1, device="cpu", generator=gen)
+    nontrivial_stats(cpu)
+    card = MultiAxisAttention(3, 64, depth=1, device=dev,
+                              generator=torch.Generator())
+    card.load_state_dict(cpu.state_dict())
+    card.eval()
+    cpu.eval()
+    x = torch.randn((16, 114, 10, 3), generator=gen)
+    err = compare("MultiAxisAttention", card(x.to(dev)).cpu(), cpu(x),
+                  TOL_F32)
+    rows = torch.randn((16, 114, 10, 64), generator=gen)
+    err2 = compare("resize 114 -> 32 rows", resize_rows(rows.to(dev),
+                                                        32).cpu(),
+                   resize_rows(rows, 32), TOL_F32)
+    log(f"  (b) MultiAxisAttention card vs CPU {err:.3e}, its antialiased "
+        f"resize 114 -> 32 rows {err2:.3e} x max|ref|")
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    x = torch.rand((256, 3, 114, 10), generator=g, device=dev)
+    std = ((add_awgn_torch(x, 0.1, g) - x).std() / (x.max() - x.min()))
+    flat = torch.full((256, 3, 114, 10), 0.5, device=dev)
+    sp = add_salt_and_pepper_torch(flat, 0.2, g)
+    ones, zeros = (sp == 1).float().mean(), (sp == 0).float().mean()
+    log(f"  (c) on the card: AWGN std / range {std.item():.5f} (0.1), "
+        f"salt {ones.item():.5f} and pepper {zeros.item():.5f} (0.1 each)")
+    if not (abs(std.item() - 0.1) < 2e-3 and abs(ones.item() - 0.1) < 2e-3
+            and abs(zeros.item() - 0.1) < 2e-3):
+        raise AssertionError("the torch noise functions' statistics")
+
+
+def zoo_step_times(dev):
+    """Phase 18 (d): each model's train step (SGD, the CLI's loss and
+    hooks) at the CLI's batch and at the train step's."""
+    from wiflow_tpu_torch.cli.run_robustness import (
+        conf_weighted_mse, to_xy_keypoints,
+    )
+    from wiflow_tpu_torch.core.config import OptimConfig
+    from wiflow_tpu_torch.metrics.metrics import pckh_fractions_fn
+    from wiflow_tpu_torch.train.steps import (
+        create_train_state, make_hooks, train_step,
+    )
+    optim = OptimConfig(lr=1e-3, kind="sgd", momentum=0.0,
+                        grad_clip_norm=None, schedule="linear_decay")
+    times = {}
+    for name in ROBUST_MODELS:
+        pck = pckh_fractions_fn(*((6, 13) if "wipose" in name else (1, 11)))
+        hooks = make_hooks(loss_fn=conf_weighted_mse,
+                           to_keypoints=to_xy_keypoints, pck_fn=pck)
+        for batch in ROBUST_BATCHES:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            state = create_train_state(optim=optim,
+                                       model=zoo_model(name, dev))
+            x, y = zoo_batch(name, batch, dev)
+            for _ in range(3):
+                train_step(state, x, y, hooks=hooks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(ROBUST_STEPS):
+                m = train_step(state, x, y, hooks=hooks)
+            loss = m["loss"].item()
+            ms = 1e3 * (time.perf_counter() - t0) / ROBUST_STEPS
+            peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+            if not math.isfinite(loss):
+                raise AssertionError(f"{name} batch {batch}: loss {loss}")
+            times[(name, batch)] = ms
+            log(f"  (d) {name} batch {batch}: step {ms:.4f} ms, "
+                f"{batch * 1e3 / ms:.1f} windows/s, peak memory "
+                f"{peak:.3f} GiB ({ROBUST_STEPS} steps, host clock ending "
+                f"in a sync)")
+            del state
+    batches = "/".join(map(str, ROBUST_BATCHES))
+    SUMMARY.append(f"zoo step ms at batch {batches} " + ", ".join(
+        n + " " + "/".join(f"{times[(n, b)]:.2f}" for b in ROBUST_BATCHES)
+        for n in ROBUST_MODELS))
+
+
+def greedy_denoiser(dev):
+    """Phase 18 (e): the AE's 5 greedy stages at MM-Fi's shape, each
+    frozen prefix unchanged bit for bit."""
+    from wiflow_tpu_torch.robustness import add_awgn_torch
+    from wiflow_tpu_torch.robustness import train_denoiser_stage
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    data = torch.rand((AE_WINDOWS, 3, 114, 10), generator=g, device=dev)
+    prev, secs = None, []
+    for stage in range(1, 6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sd = train_denoiser_stage(
+            data, stage, lambda x, gen: add_awgn_torch(x, 0.1, gen),
+            prev_state_dict=prev, epochs=1, batch_size=32, seed=SEED,
+            verbose=True, device=dev)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        for k, v in (prev or {}).items():
+            if not torch.equal(sd[k], v):
+                raise AssertionError(f"stage {stage} moved its frozen {k}")
+        log(f"  (e) AE stage {stage}: 1 epoch of {AE_WINDOWS // 32} steps "
+            f"(batch 32) in {secs[-1]:.4f} s"
+            + (f"; the {stage - 1}-stage prefix bit-equal" if prev else ""))
+        prev = sd
+    SUMMARY.append("AE stage epoch s " + "/".join(f"{t:.2f}" for t in secs))
+
+
+def robustness_clis(dev, all_kernels, tmp):
+    """Phase 18 (f): ``cli/run_robustness.py`` in modes 0, 1 and 2 on the
+    learnable MM-Fi tree, DSKNetTrans on synthetic WiPose, and
+    ``cli/robustness_demo.py`` at one level; no kernel of the repository
+    is on their paths."""
+    tree = os.path.join(tmp, "mmfi")
+    runs = [
+        ("mode 0", ["--model", "original_hpe", "--mode", "0"]),
+        ("mode 1", ["--model", "denoiser_hpe", "--denoiser_stages", "2",
+                    "--denoiser_epochs", "2", "--noise_levels", "0.1"]),
+        ("mode 2", ["--model", "original_hpe", "--mode", "2", "--filter",
+                    "gaussian", "--noise_levels", "0.1"]),
+        ("WiPose", ["--model", "dsknet_trans_wipose", "--wipose_root",
+                    os.path.join(tmp, "wipose")]),
+    ]
+    for i, (what, flags) in enumerate(runs):
+        argv = [*flags, *ROBUST_CLI, "--dataset_root", tree, "--output_dir",
+                os.path.join(tmp, f"run{i}")]
+        log(f"  (f) python -m wiflow_tpu_torch.cli.run_robustness "
+            f"{' '.join(argv)} (its main in this process)")
+        reset_launches(all_kernels)
+        t0 = time.perf_counter()
+        text = cli_main(argv, "run_robustness")
+        wall = time.perf_counter() - t0
+        expect_launches(f"run_robustness {what}", read_launches(all_kernels),
+                        {})
+        path = done_line(text).split("-> ")[1]
+        with open(path, encoding="utf-8") as fd:
+            res = json.load(fd)
+        for level, row in res.items():
+            vals = [row["test_pck20"], row["test_mpjpe"]] + [
+                v for r in row["sweep"].values() for v in r.values()]
+            if not all(math.isfinite(v) for v in vals):
+                raise AssertionError(f"{what}: {row}")
+            log(f"  {what} level {level}: test PCK@20 "
+                f"{100 * row['test_pck20']:.2f}%, MPJPE "
+                f"{row['test_mpjpe']:.4f}, sweep " + ", ".join(
+                    f"{k}: PCK@20 {100 * r['pck@0.2']:.2f}%"
+                    for k, r in row["sweep"].items()))
+        t = run_timings(text)
+        log(f"  {what}: run {wall:.3f} s, epochs "
+            + ", ".join(f"{e:.3f}" for e in t["epoch_s"]) + " s")
+        filt = [ln for ln in text.splitlines()
+                if ln.startswith("[filter] gaussian train:")]
+        if what == "mode 2":
+            if len(filt) != 1:
+                raise AssertionError(f"mode 2 printed {filt}")
+            SUMMARY.append("mode 2 " + filt[0][1:].replace("]", ""))
+    argv = ["--epochs", "2", "--levels", "0.1", "--denoiser_stages", "2",
+            "--denoiser_epochs", "1", "--synthetic_frames", "100",
+            "--work_dir", os.path.join(tmp, "demo_work"), "--dataset_root",
+            os.path.join(tmp, "demo_mmfi"), "--output_dir",
+            os.path.join(tmp, "demo")]
+    log(f"  (f) python -m wiflow_tpu_torch.cli.robustness_demo "
+        f"{' '.join(argv)} (its main in this process)")
+    reset_launches(all_kernels)
+    t0 = time.perf_counter()
+    cli_main(argv, "robustness_demo")
+    expect_launches("robustness_demo", read_launches(all_kernels), {})
+    with open(os.path.join(tmp, "demo", "summary.json"),
+              encoding="utf-8") as fd:
+        rows = json.load(fd)["table"]["levels"]["0.1"]
+    log(f"  demo: {time.perf_counter() - t0:.3f} s; at 0.1 PCK@20 "
+        + ", ".join(f"{k} {r['pck20']:.2f}%" for k, r in rows.items()))
+
+
+@torch.no_grad()
+def flagship_sweep(dev, all_kernels):
+    """Phase 18 (g): ``evaluate_robustness`` over the flagship's
+    ``fast_forward`` (bf16, seeded weights) with the Gaussian cleaner at
+    levels 0.0 and 0.1: level 0.0 equals the same predictions evaluated
+    directly, and rows 1-3 are launched for every batch."""
+    import numpy as np
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.metrics.metrics import mpjpe, pck_correct_fractions
+    from wiflow_tpu_torch.metrics.mmfi_metrics import pa_mpjpe
+    from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
+    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    from wiflow_tpu_torch.robustness import (
+        evaluate_robustness, gaussian_filter,
+    )
+    from wiflow_tpu_torch.robustness.evaluate import THRESHOLDS
+    model = WiFlowPoseModel(ModelConfig(compute_dtype="float32"), device=dev,
+                            generator=torch.Generator().manual_seed(SEED))
+    nontrivial_stats(model)
+    packed = pack_fast(model.state_dict(), ModelConfig(), device=dev)
+    del model
+    rng = np.random.default_rng(SEED)
+    csi = rng.standard_normal((SWEEP_WINDOWS, 540, 20)).astype(np.float32)
+    batch = TRAIN_BATCH
+    nb = SWEEP_WINDOWS // batch
+    # the served keypoints of the clean windows are the targets
+    kp = torch.cat([fast_forward(packed, torch.from_numpy(
+        csi[i:i + batch]).to(dev)) for i in range(0, SWEEP_WINDOWS, batch)])
+    reset_launches(all_kernels)
+    t0 = time.perf_counter()
+    res = evaluate_robustness(lambda x: fast_forward(packed, x), csi,
+                              kp.cpu().numpy(), noise_levels=(0.0, 0.1),
+                              cleaner="gaussian", batch_size=batch,
+                              seed=SEED, device=dev)
+    wall = time.perf_counter() - t0
+    expect_launches("evaluate_robustness over fast_forward, 2 levels",
+                    read_launches(all_kernels),
+                    {"tcn_level": 4 * nb * 2, "conv_stack": nb * 2,
+                     "axial_attention": 2 * nb * 2})
+    preds = []
+    for i in range(0, SWEEP_WINDOWS, batch):
+        x = torch.from_numpy(csi[i:i + batch]).to(dev)
+        preds.append(fast_forward(packed, gaussian_filter(x[:, None])
+                                  .reshape(x.shape)))
+    pred = torch.cat(preds)
+    direct = {f"pck@{t}": float(v) for t, v in zip(
+        THRESHOLDS, pck_correct_fractions(pred, kp, THRESHOLDS).tolist())}
+    direct["mpjpe"] = float(mpjpe(pred, kp))
+    direct["pa_mpjpe"] = float(pa_mpjpe(pred, kp))
+    if res[0.0] != direct:
+        raise AssertionError(f"level 0.0 {res[0.0]} != the direct "
+                             f"evaluation {direct}")
+    log(f"  (g) evaluate_robustness over fast_forward, {SWEEP_WINDOWS} "
+        f"windows, batch {batch}, Gaussian cleaner: {wall:.4f} s for 2 "
+        f"levels; level 0.0 equals the direct evaluation; PCK@20 against "
+        f"the clean served keypoints: 0.0 {100 * res[0.0]['pck@0.2']:.2f}%, "
+        f"0.1 {100 * res[0.1]['pck@0.2']:.2f}%; MPJPE "
+        f"{res[0.0]['mpjpe']:.5f} / {res[0.1]['mpjpe']:.5f}")
+
+
+def robustness_slice(dev, all_kernels):
+    """Phase 18: the robustness kit on the card."""
+    log("phase 18: the robustness kit on the card (HPE-Li's zoo, the "
+        "denoising AEs, the robustness CLIs, the flagship swept)")
+    t0 = time.perf_counter()
+    zoo_on_card(dev)
+    zoo_step_times(dev)
+    greedy_denoiser(dev)
+    with tempfile.TemporaryDirectory() as tmp:
+        robustness_clis(dev, all_kernels, tmp)
+    flagship_sweep(dev, all_kernels)
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    log(f"  phase 18: {wall:.1f} s")
+    SUMMARY.append(f"phase 18 {wall:.1f} s")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3973,6 +4314,9 @@ def main() -> int:
 
     # -- phase 17: the baselines ---------------------------------------------
     baseline_slice(dev, all_kernels)
+
+    # -- phase 18: the robustness kit -----------------------------------------
+    robustness_slice(dev, all_kernels)
 
     log(smi)
     log(json.dumps({"kernels": record}))

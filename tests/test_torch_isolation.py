@@ -336,3 +336,73 @@ def test_ablation_and_baseline_entry_points_need_cuda_or_an_explicit_cpu():
                        (run_baseline.main, ["--model", "hpeli"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             main(argv)
+
+
+# The robustness kit (HPE-Li's zoo, noise, filters, denoisers, WiPose and
+# their CLIs): none of it imports JAX, PyYAML (``--config`` imports it when
+# given), h5py or mat73 (``load_wipose_mat`` imports them when called), nor
+# what the card lacks besides.
+KIT_BLOCKED = MISSING_ON_THE_CARD + ("msgpack", "h5py", "mat73")
+KIT_MODULES = ("cli.run_robustness", "cli.robustness_demo", "data.wipose",
+               "models.baselines.sknet_trans", "models.baselines.hpeli_zoo",
+               "robustness", "robustness.denoiser", "robustness.evaluate",
+               "robustness.filters", "robustness.noise")
+
+_KIT_CLI_WITHOUT_THEM = """
+import json, os, sys
+for name in {blocked!r}:
+    sys.modules[name] = None
+import torch
+torch.set_num_threads(1)
+from wiflow_tpu_torch.cli import run_robustness
+root = sys.argv[1]
+out = os.path.join(root, "out")
+assert run_robustness.main(["--model", "hpe_wipose", "--synthetic",
+                            "--wipose_root", os.path.join(root, "w"),
+                            "--output_dir", out, "--epochs", "1",
+                            "--batch_size", "8", "--device", "cpu"]) == 0
+with open(os.path.join(out, "robustness_hpe_wipose_mode0.json")) as fd:
+    print("keys", sorted(json.load(fd)["0.0"]))
+"""
+
+
+def test_robustness_kit_imports_without_them():
+    block = f"for name in {BLOCKED!r}:"
+    r = _run(["-c", _IMPORT_ALL.replace(
+        block, f"for name in {BLOCKED + KIT_BLOCKED!r}:", 1)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    for module in KIT_MODULES:
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
+
+
+def test_robustness_cli_runs_without_them(tmp_path):
+    r = _run(["-c", _KIT_CLI_WITHOUT_THEM.format(
+        blocked=BLOCKED + KIT_BLOCKED), str(tmp_path)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert r.stdout.splitlines()[-1] == (
+        "keys ['sweep', 'test_mpjpe', 'test_pck20', 'test_pck50']")
+
+
+def test_robustness_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from wiflow_tpu_torch.cli import robustness_demo, run_robustness
+    from wiflow_tpu_torch.models.baselines import hpeli_zoo, sknet_trans
+    from wiflow_tpu_torch.robustness import (
+        DenoiserHPE, StackedDenoisingAE, evaluate_robustness,
+        train_denoiser_stage,
+    )
+    x = np.zeros((4, 3, 8, 4), np.float32)
+    for make in (hpeli_zoo.OriginalHPE, hpeli_zoo.BasicCnnHPE,
+                 hpeli_zoo.HPEWiPoseModel, hpeli_zoo.DSKNetTransMMFi,
+                 hpeli_zoo.DSKNetTransWipose, sknet_trans.DSKNetTrans,
+                 DenoiserHPE, StackedDenoisingAE,
+                 lambda: train_denoiser_stage(x, 1, lambda c, g: c),
+                 lambda: evaluate_robustness(lambda b: b, x, x)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            make()
+    for main in (run_robustness.main, robustness_demo.main):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            main(["--epochs", "1", "--output_dir", str(tmp_path / "out"),
+                  "--dataset_root", str(tmp_path / "mmfi")])
+    assert not os.path.exists(tmp_path / "mmfi")

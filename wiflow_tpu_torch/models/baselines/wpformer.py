@@ -116,10 +116,17 @@ class ChannelAttention(nn.Module):
         self.attn_drop = TorchDropout(dropout, dropout_generator)
         self.proj_drop = TorchDropout(dropout, dropout_generator)
 
+    def head_weights(self, w: str):
+        """The heads' ``[C, C]`` matrices of ``w`` (``"wq"``, ``"wk"``,
+        ``"wv"``; ``"wo"``, the output's, is one), each used as ``x @ m``."""
+        if w == "wo":
+            return self.wo
+        return [getattr(self, f"{w}{i}") for i in range(self.heads)]
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         def heads(w):
-            return torch.stack([x @ getattr(self, f"{w}{i}").to(x.dtype)
-                                for i in range(self.heads)], dim=1)
+            return torch.stack([x @ m.to(x.dtype)
+                                for m in self.head_weights(w)], dim=1)
 
         q, k, v = heads("wq"), heads("wk"), heads("wv")     # [B, H, N, C]
         scores = torch.einsum("bhnc,bhnd->bhcd", q.float(), k.float())
@@ -132,12 +139,16 @@ class ChannelAttention(nn.Module):
         ctx = torch.einsum("bhcd,bhnd->bhcn", probs.float(),
                            v.float()).to(x.dtype)
         ctx = ctx.permute(0, 3, 2, 1).mean(dim=3)            # [B, N, C]
-        return self.proj_drop(ctx @ self.wo.to(x.dtype))
+        return self.proj_drop(ctx @ self.head_weights("wo").to(x.dtype))
 
 
 class ChannelTransformer(nn.Module):
     """Position embedding -> encoder layer(s) -> 1x1 conv + BN + ReLU
-    reconstruction + residual (ref ChannelTrans.py:193-291)."""
+    reconstruction + residual (ref ChannelTrans.py:193-291).  ``forward``
+    reaches its weights through :meth:`layer_parts` and :meth:`outer_parts`
+    (and the attention through ``head_weights``), which
+    ``hpeli_zoo.ReferenceChannelTransformer`` overrides to hold the same
+    computation under the reference's names."""
 
     def __init__(self, channels: int, spatial: Sequence[int],
                  num_layers: int = 1, heads: int = 3,
@@ -171,25 +182,35 @@ class ChannelTransformer(nn.Module):
         self.rec_bias = flax_param((c,), "zeros", generator, device)
         self.rec_bn = TorchBatchNorm(c, device=device)
 
+    def layer_parts(self, i: int):
+        """Layer ``i``'s modules: attention norm, attention, FFN norm, FFN
+        in, its dropout, FFN out, its dropout."""
+        return tuple(getattr(self, f"{n}_{i}") for n in (
+            "attn_norm", "attn", "ffn_norm", "mlp_in", "mlp_drop1",
+            "mlp_out", "mlp_drop2"))
+
+    def outer_parts(self):
+        """Position embeddings, their dropout, the encoder's last norm, and
+        the reconstruction's OIHW weight, bias and BatchNorm."""
+        return (self.position_embeddings, self.emb_drop, self.encoder_norm,
+                self.rec_weight, self.rec_bias, self.rec_bn)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b = x.shape[0]
         h, w = self.spatial
+        pos, emb_drop, encoder_norm, rec_w, rec_b, rec_bn = self.outer_parts()
         t = x.reshape(b, h * w, self.channels)
-        t = self.emb_drop(t + self.position_embeddings.to(x.dtype))
+        t = emb_drop(t + pos.to(x.dtype))
         for i in range(self.num_layers):
-            y = layer_norm(getattr(self, f"attn_norm_{i}"), t)
-            t = t + getattr(self, f"attn_{i}")(y)
-            y = layer_norm(getattr(self, f"ffn_norm_{i}"), t)
-            y = torch.nn.functional.gelu(getattr(self, f"mlp_in_{i}")(y),
-                                         approximate="tanh")
-            y = getattr(self, f"mlp_drop1_{i}")(y)
-            y = getattr(self, f"mlp_out_{i}")(y)
-            y = getattr(self, f"mlp_drop2_{i}")(y)
-            t = t + y
-        t = layer_norm(self.encoder_norm, t)
-        y = conv2d(t.reshape(b, h, w, self.channels), self.rec_weight,
-                   self.rec_bias)
-        return torch.relu(self.rec_bn(y)) + x
+            attn_norm, attn, ffn_norm, mlp_in, drop1, mlp_out, drop2 = (
+                self.layer_parts(i))
+            t = t + attn(layer_norm(attn_norm, t))
+            y = layer_norm(ffn_norm, t)
+            y = torch.nn.functional.gelu(mlp_in(y), approximate="tanh")
+            t = t + drop2(mlp_out(drop1(y)))
+        t = layer_norm(encoder_norm, t)
+        y = conv2d(t.reshape(b, h, w, self.channels), rec_w, rec_b)
+        return torch.relu(rec_bn(y)) + x
 
 
 class WPformer(FlaxLayout, nn.Module):

@@ -1,7 +1,8 @@
 """Building blocks with torch ``state_dict`` names.
 
 Counterpart of ``wiflow_tpu/models/layers.py``: BatchNorm in train and
-eval mode, dropout and channel dropout, SiLU.
+eval mode (channel-last, or channel-first), dropout and channel dropout,
+SiLU.
 
 Dropout draws its keep bits from a ``torch.Generator`` that the model
 holds (``WiFlowPoseModel.dropout_generator``, on the model's device) and
@@ -83,6 +84,16 @@ class TorchBatchNorm(nn.Module):
             return y
         return batch_norm_eval(x, self.running_mean, self.running_var,
                                self.weight, self.bias)
+
+
+class ChannelFirstBatchNorm(TorchBatchNorm):
+    """:class:`TorchBatchNorm` over axis 1 of ``[B, C, ...]`` (torch's
+    ``BatchNorm1d`` / ``BatchNorm2d`` layout; the JAX package's
+    ``TorchBatchNorm(channel_axis=1)``), for the modules that keep torch's
+    NCHW order."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.movedim(1, -1)).movedim(-1, 1)
 
 
 class TorchDropout(nn.Module):
