@@ -249,13 +249,35 @@ Phases (any failure exits nonzero; nothing is caught):
    ``cli.robustness_demo`` at one level for 2 epochs, each in this process
    with every launch count 0 (no kernel of the repository is on their
    paths); (g) ``evaluate_robustness`` over the flagship's
-   ``fast_forward`` (bf16, seeded weights) with the Gaussian cleaner at
-   levels 0.0 and 0.1 over 4,096 windows: level 0.0 must equal the same
-   predictions evaluated directly, and rows 1-3 must launch 4, 1 and 2
-   times a batch; the phase's wall clock.
+   ``fast_forward`` (bf16) serving the weights phase 14's CLI trained, on
+   the CLI's test split against its true keypoints, at the kit's default
+   AWGN levels 0.0, 0.1, 0.2 and 0.4 (no cleaner): level 0.0 must equal
+   the same predictions evaluated directly, PCK@20 at 0.4 must be below
+   PCK@20 at 0.0, and rows 1-3 must launch 4, 1 and 2 times a batch; the
+   phase's wall clock;
+19. the demo CLIs, cut in windows and epochs, never widths (bf16, batch
+   256): ``cli.convergence_demo`` at 32,768 windows for 3 epochs in this
+   process (the train kernels launched twice a step; its summary and
+   windows/s printed), ``cli.kill_resume_demo`` at 8,192 windows for 4
+   epochs (its runs subprocesses; killed after epoch 2's bundle, resumed
+   at epoch 3, the histories within the JAX demo's tolerance, their
+   largest difference printed), ``cli.loso_demo`` with 5 subjects x 2,048
+   windows for 2 epochs (5 rows);
+20. data parallelism at world size 1: ``train_pose_model`` for one epoch
+   (stock ops, and fused) inside an NCCL process group of one rank
+   (``parallel/mesh.py``) against the same epoch without it: history,
+   test metrics, weights and predictions bit for bit, rows 6-9 (and
+   10-13 fused) launched as often; ``cli.run --gpu`` one more than the
+   cards must exit nonzero with "more ranks than devices".
+
+Phase 4 also holds the stock-op lowerings of ``fast_forward``
+(``fuse_tcn=False``, ``fuse_conv_stack=False``, both) to the plain module
+and to the default lowering, on the seeded weights and on weights whose
+BatchNorms are spread so that the output varies, with their launches
+(no TCN or no conv-stack kernel) and windows/s.
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases; phases 14-18 run last.
+run after phase 4, before the training phases; phases 14-20 run last.
 The last lines are the card's name and power limit, the kernels' JSON
 record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys, rows 10-13
 ``tcn_plain_*`` and ``tcn_depthwise_*`` keys), a summary
@@ -405,8 +427,9 @@ TABLE_WINDOWS = 2048
 # MM-Fi's shape, 1 epoch each; the robustness CLI on its learnable tree
 # at MM-Fi's 297 frames a sequence (4 subjects x 2 actions: 2,376
 # frames), 2 epochs a run; the demo at one level, 2 epochs, on its own
-# tree of 100 frames a sequence; the flagship's serving path swept over
-# 4,096 windows at batch 256.  Cut for the script's time: windows,
+# tree of 100 frames a sequence; the flagship's serving path, with the
+# weights phase 14 trained, swept over the CLI's test split at batch 128.
+# Cut for the script's time: windows,
 # frames and epochs (the reference: MM-Fi's 40 x 27 sequences, 60
 # epochs), never widths.
 ROBUST_MODELS = ("original_hpe", "basic_cnn", "dsknet_trans", "hpe_wipose",
@@ -416,7 +439,19 @@ ROBUST_STEPS = 10
 AE_WINDOWS = 2048
 ROBUST_CLI = ["--epochs", "2", "--synthetic", "--synthetic_learnable",
               "--synthetic_frames", "297", "--no_resume"]
-SWEEP_WINDOWS = 4096
+SWEEP_BATCH = 128
+
+
+# Phase 19: the demo CLIs, cut in windows and epochs (the reference:
+# 360,000 windows and 50 epochs, LOSO 20,000 a subject for 12), never in
+# widths; batch 256, the demos' default.
+DEMO_WINDOWS = 32_768
+DEMO_EPOCHS = 3
+KILL_WINDOWS = 8_192
+KILL_EPOCHS = 4
+KILL_EPOCH = 2
+LOSO_PER_SUBJECT = 2_048
+LOSO_EPOCHS = 2
 
 
 # Short readings of the run, printed together just before the last line,
@@ -2690,6 +2725,219 @@ def variant_timings(cfg, a_in, packed16, x32, launches, errs, mmfi):
     return record, mmfi_times, mmfi_cublas
 
 
+# Phase 4's stock-op lowerings of ``fast_forward``: (fuse_tcn,
+# fuse_conv_stack) off the default, and the kernels each still launches.
+LOWERINGS = ((False, True), (True, False), (False, False))
+
+# Phase 4's bf16 checks of the stock lowerings on ``lively_state``'s
+# weights (the seeded model serves nearly one output for every row, so
+# only these show a wrong bf16 lowering).  Each stock layer, on the
+# card's bf16 input of LAYER_ROWS rows, is held to the same layer on the
+# CPU, whose stock ops round where the JAX package's stock ops round
+# (tests/test_torch_fast_lowerings.py): at most STOCK_LAYER_DIFFERING of
+# its values may differ, by at most STOCK_LAYER_MAX of max|ref|; the
+# control, silu rounded once (``F.silu``) in the first TCN level, must
+# miss the share.  End to end, each stock lowering in bf16 is held to the
+# fp32 module and to the default lowering in bf16 at LIVELY_BF16 x
+# max|ref|; the control, the stock path with the shortcut of residual
+# block 1 folded 1.25x too large, must miss it.  The same mis-folding in
+# the first TCN level moves the output by no more than bf16 noise does
+# (logged, not held): end to end, bf16 sees only a coarse fault, and a
+# folding fault is the fp32 checks' to find.  The limits lie between the
+# sound readings and the controls' on the H100 (PERF.md, phase 4).
+LAYER_ROWS = 64
+STOCK_LAYER_DIFFERING = 0.05
+STOCK_LAYER_MAX = 2.0 ** -7
+LIVELY_BF16 = 0.12
+
+
+def lively_state(sd):
+    """``sd`` with every BatchNorm's scale times 1.7 (1 + sin / 2) and its
+    shift plus cos / 10: the seeded model serves nearly one output for
+    every row, this one an output that varies (``check_spread``)."""
+    out = dict(sd)
+    for k, v in sd.items():
+        bn = k.rsplit(".", 1)[0]
+        if f"{bn}.running_var" not in sd or v.ndim != 1:
+            continue
+        i = torch.arange(v.numel(), device=v.device, dtype=torch.float32)
+        if k.endswith(".weight"):
+            out[k] = v * 1.7 * (1 + 0.5 * torch.sin(i))
+        elif k.endswith(".bias"):
+            out[k] = v + 0.1 * torch.cos(i)
+    return out
+
+
+def bf16_distance(got, ref):
+    """(share of the values that differ, max|got - ref| / max|ref|)."""
+    got, ref = got.float().cpu(), ref.float().cpu()
+    return ((got != ref).float().mean().item(),
+            ((got - ref).abs().max() / ref.abs().max()).item())
+
+
+def stock_layers_bf16(dev, live, x):
+    """Each stock layer of the bf16 pack of ``live`` on the card, chained
+    on the card's outputs from ``x``'s first LAYER_ROWS rows, against the
+    same layer on the CPU on the same bf16 input; then the control, the
+    first TCN level with ``F.silu``.  Logs every reading and returns
+    (the layers' largest share, their largest max, the control's share)."""
+    import torch.nn.functional as F
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.models import fast
+    on_card = fast.pack_fast(live, ModelConfig(), device=dev)
+    on_cpu = fast.pack_fast({k: v.cpu() for k, v in live.items()},
+                            ModelConfig(), device="cpu")
+    layers = [(f"tcn level {i}", fast._stock_tcn_level, d, c)
+              for i, (d, c) in enumerate(zip(on_card.stock_tcn,
+                                             on_cpu.stock_tcn))]
+    layers += [(f"conv block {k}", fast._stock_conv_block, d, c)
+               for k, (d, c) in enumerate(zip(on_card.stock_conv,
+                                              on_cpu.stock_conv))]
+    h = x[:LAYER_ROWS].to(torch.bfloat16).transpose(1, 2).contiguous()
+    first = h
+    shares, maxes = [], []
+    for name, fn, w_card, w_cpu in layers:
+        if name == "conv block 0":
+            h = h[..., None]
+        got = fn(w_card, h)
+        share, worst = bf16_distance(got, fn(w_cpu, h.cpu()))
+        log(f"  stock {name} bf16, lively weights, card vs CPU: "
+            f"{share:.4%} of values differ, max {worst:.3e} x max|ref|")
+        shares.append(share)
+        maxes.append(worst)
+        h = got
+    silu, fast._silu = fast._silu, F.silu
+    try:
+        got = fast._stock_tcn_level(on_card.stock_tcn[0], first)
+    finally:
+        fast._silu = silu
+    control, cmax = bf16_distance(
+        got, fast._stock_tcn_level(on_cpu.stock_tcn[0], first.cpu()))
+    log(f"  control, stock tcn level 0 with F.silu on the card vs CPU: "
+        f"{control:.4%} of values differ, max {cmax:.3e} x max|ref|")
+    return max(shares), max(maxes), control
+
+
+def lively_bf16(dev, live, live_ref, x32):
+    """Phase 4, the stock lowerings in bf16 on ``lively_state``'s weights:
+    the layers (``stock_layers_bf16``) and each lowering end to end
+    against the fp32 module ``live_ref`` and the default lowering, with
+    the controls; every reading is logged before the limits are held."""
+    import dataclasses
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
+    share, worst, control = stock_layers_bf16(dev, live, x32)
+    live16 = pack_fast(live, ModelConfig(), device=dev)
+    default = fast_forward(live16, x32)
+    scale = live_ref.abs().max().item()
+
+    def rel(a, b):
+        return ((a.float() - b.float()).abs().max() / b.abs().max()).item()
+
+    readings = {"default lowering bf16 vs module fp32":
+                rel(default, live_ref)}
+    for fuse_tcn, fuse_conv in LOWERINGS:
+        flags = dict(fuse_tcn=fuse_tcn, fuse_conv_stack=fuse_conv)
+        name = f"fuse_tcn={fuse_tcn}, fuse_conv_stack={fuse_conv}"
+        y = fast_forward(live16, x32, **flags)
+        if not torch.isfinite(y).all():
+            raise AssertionError(f"{name}, lively weights bf16: non-finite")
+        readings[f"{name} bf16 vs module fp32"] = rel(y, live_ref)
+        readings[f"{name} bf16 vs default lowering bf16"] = rel(y, default)
+    lv, blk = live16.stock_tcn[0], live16.stock_conv[2]
+    bad_tcn = dataclasses.replace(live16, stock_tcn=(
+        lv._replace(g1=(lv.g1[0] * 1.25, lv.g1[1])),
+        *live16.stock_tcn[1:]))
+    bad = dataclasses.replace(live16, stock_conv=(
+        *live16.stock_conv[:2],
+        blk._replace(down=(blk.down[0] * 1.25, blk.down[1])),
+        *live16.stock_conv[3:]))
+    stock = dict(fuse_tcn=False, fuse_conv_stack=False)
+    bad_rel = rel(fast_forward(bad, x32, **stock), live_ref)
+    tcn_rel = rel(fast_forward(bad_tcn, x32, **stock), live_ref)
+    for name, r in readings.items():
+        log(f"  lively weights, {name}: {r:.6e} x max|ref| "
+            f"(max|ref| {scale:.4e}, limit {LIVELY_BF16:g})")
+    log(f"  lively weights, control (stock path, residual block 1's "
+        f"shortcut folded 1.25x) bf16 vs module fp32: {bad_rel:.6e} x "
+        f"max|ref|; the same in TCN level 0's first grouped conv (not "
+        f"held): {tcn_rel:.6e}")
+    SUMMARY.append(
+        f"lively bf16: layers {share:.4%} differ max {worst:.3e}, control "
+        f"{control:.4%}; end to end worst "
+        f"{max(readings.values()):.4e}, control {bad_rel:.4e}")
+    if share > STOCK_LAYER_DIFFERING or worst > STOCK_LAYER_MAX:
+        raise AssertionError(
+            f"a stock layer in bf16 on the card strays from the CPU's "
+            f"rounding: {share:.4%} of values differ, max {worst:.3e}")
+    if not control > STOCK_LAYER_DIFFERING:
+        raise AssertionError(
+            f"the F.silu control reads {control:.4%}: the layer check cannot "
+            f"tell where a lowering rounds")
+    bad_names = [n for n, r in readings.items() if r > LIVELY_BF16]
+    if bad_names:
+        raise AssertionError(f"lively weights bf16 over {LIVELY_BF16}: "
+                             f"{bad_names}")
+    if not bad_rel > LIVELY_BF16:
+        raise AssertionError(
+            f"the mis-folded control reads {bad_rel:.4e}: the end-to-end "
+            f"bf16 check cannot tell a wrong lowering")
+
+
+def stock_lowerings(dev, all_kernels, sd, packed32, packed16, x32, ref_out,
+                    out16):
+    """Phase 4, the stock-op lowerings: ``fast_forward`` with
+    ``fuse_tcn=False``, ``fuse_conv_stack=False`` and both, in bf16 at
+    batch 4096, each held to the plain fp32 module and to the default
+    lowering at ``TOL_BF16`` (and in fp32 to the module at ``TOL_F32``),
+    and in fp32 on the same weights with their BatchNorms spread
+    (``lively_state``), whose output varies over the rows, to the module
+    at ``TOL_F32``, and in bf16 on those weights (``lively_bf16``: their
+    gains take even the kernels' own lowering past ``TOL_BF16``); the
+    kernels launched (the TCN kernel none without ``fuse_tcn``, the conv
+    stack none without ``fuse_conv_stack``, the attention 2) and the
+    windows/s of each."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
+    from wiflow_tpu_torch.models.torch_compat import load_state_dict
+    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+    b = x32.shape[0]
+    log(f"phase 4: the stock-op lowerings of fast_forward, batch {b}")
+    live = lively_state(sd)
+    live_ref = load_state_dict(WiFlowPoseModel(ModelConfig(
+        compute_dtype="float32"), device=dev), live)(x32)
+    check_spread("lively weights: module fp32", live_ref)
+    live32 = pack_fast(live, ModelConfig(compute_dtype="float32"), device=dev)
+    compare("lively weights: default lowering fp32 vs module fp32",
+            fast_forward(live32, x32), live_ref, TOL_F32)
+    lively_bf16(dev, live, live_ref, x32)
+    default_ms = time_ms(lambda: fast_forward(packed16, x32), RUNS)
+    rates = [f"default {b / default_ms * 1e3:.1f}"]
+    for fuse_tcn, fuse_conv in LOWERINGS:
+        flags = dict(fuse_tcn=fuse_tcn, fuse_conv_stack=fuse_conv)
+        name = f"fuse_tcn={fuse_tcn}, fuse_conv_stack={fuse_conv}"
+        reset_launches(all_kernels)
+        y16 = fast_forward(packed16, x32, **flags)
+        expect_launches(f"fast_forward({name})", read_launches(all_kernels),
+                        {"tcn_level": len(packed16.tcn) if fuse_tcn else 0,
+                         "conv_stack": 1 if fuse_conv else 0,
+                         "axial_attention": 2})
+        compare(f"{name}: bf16 vs module fp32", y16, ref_out, TOL_BF16)
+        compare(f"{name}: bf16 vs the default lowering bf16", y16, out16,
+                TOL_BF16)
+        compare(f"{name}: fp32 vs module fp32",
+                fast_forward(packed32, x32, **flags), ref_out, TOL_F32)
+        compare(f"{name}, lively weights: fp32 vs module fp32",
+                fast_forward(live32, x32, **flags), live_ref, TOL_F32)
+        ms = time_ms(lambda: fast_forward(packed16, x32, **flags), RUNS)
+        log(f"  fast_forward({name}) bf16 batch {b}: {ms:.4f} ms = "
+            f"{b / ms * 1e3:.1f} windows/s (default lowering {default_ms:.4f}"
+            f" ms in the same turn)")
+        rates.append(f"tcn {int(fuse_tcn)} conv {int(fuse_conv)} "
+                     f"{b / ms * 1e3:.1f}")
+    SUMMARY.append("fast_forward windows/s by lowering: " + ", ".join(rates))
+
+
 def build_kernels(only=None):
     """Phase 1.  Returns nvidia-smi's line for the card, the three kernels
     of the default serving path and every kernel of the port, by name.
@@ -2854,6 +3102,8 @@ def serving_phases(dev, kernels, all_kernels):
     log(f"peak device memory: "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del dec_in, a16, stream, poses, direct, model16, inputs
+    stock_lowerings(dev, all_kernels, sd, packed32, packed16, x32, ref_out,
+                    out16)
 
     # -- phases 11-13: the other lowerings of fast_forward, and MM-Fi -------
     v_errs, v_launches = check_attention_variants(
@@ -3016,6 +3266,18 @@ def epoch_numbers(what, timings, windows, unit="windows"):
 
 
 @torch.no_grad()
+def cli_test_split(data_dir):
+    """The CLI's test split of ``data_dir`` (its file-level split at seed
+    42): windows and true keypoints, numpy."""
+    from wiflow_tpu_torch.data.dataset import CSIKeypointsDataset
+    from wiflow_tpu_torch.data.splits import (
+        expand_to_samples, file_level_split,
+    )
+    ds = CSIKeypointsDataset(data_dir)
+    test_files = file_level_split(ds.num_files, seed=42)[2]
+    return ds.materialize(expand_to_samples(ds.window_ranges, test_files))
+
+
 def serve_trained(dev, all_kernels, out, data_dir):
     """Phase 14, step 4: the best weights in ``out`` served through
     ``fast_forward`` and held to the plain module; returns the output's std
@@ -3023,10 +3285,6 @@ def serve_trained(dev, all_kernels, out, data_dir):
     import numpy as np
     from wiflow_tpu_torch.core.checkpoint import load_best_model
     from wiflow_tpu_torch.core.config import ModelConfig
-    from wiflow_tpu_torch.data.dataset import CSIKeypointsDataset
-    from wiflow_tpu_torch.data.splits import (
-        expand_to_samples, file_level_split,
-    )
     from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
     from wiflow_tpu_torch.models.torch_compat import load_state_dict
     from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
@@ -3037,9 +3295,7 @@ def serve_trained(dev, all_kernels, out, data_dir):
         raise AssertionError("best_pose_model.msgpack and .pth differ")
     log(f"  best_pose_model.msgpack gives the .pth's state_dict bit for bit "
         f"({len(from_msgpack)} tensors)")
-    ds = CSIKeypointsDataset(data_dir)
-    test_files = file_level_split(ds.num_files, seed=42)[2]
-    x, _ = ds.materialize(expand_to_samples(ds.window_ranges, test_files))
+    x, _ = cli_test_split(data_dir)
     n = len(x)
     x = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
     x = x.repeat(-(-BATCH // n), 1, 1)[:BATCH]
@@ -3065,7 +3321,9 @@ def serve_trained(dev, all_kernels, out, data_dir):
 
 
 def cli_slice(dev, all_kernels):
-    """Phase 14: train from the CLI, resume, and serve what it trained."""
+    """Phase 14: train from the CLI, resume, and serve what it trained.
+    Returns the best weights (a CPU ``state_dict``) and the CLI's test
+    split, which phase 18 sweeps."""
     import importlib.util
     root = os.path.dirname(os.path.abspath(__file__))
     with tempfile.TemporaryDirectory() as tmp:
@@ -3163,6 +3421,9 @@ def cli_slice(dev, all_kernels):
             f"{statistics.median(rates):.1f} windows/s, host "
             f"{100 * statistics.median(share):.1f}%, served std after "
             f"{epochs} epochs {spread:.3e} of max {top:.3e}")
+        from wiflow_tpu_torch.core.checkpoint import load_best_model
+        return (load_best_model(os.path.join(out, "best_pose_model.pth")),
+                cli_test_split(data))
 
 
 def mmfi_tree(root):
@@ -4198,67 +4459,65 @@ def robustness_clis(dev, all_kernels, tmp):
 
 
 @torch.no_grad()
-def flagship_sweep(dev, all_kernels):
+def flagship_sweep(dev, all_kernels, trained):
     """Phase 18 (g): ``evaluate_robustness`` over the flagship's
-    ``fast_forward`` (bf16, seeded weights) with the Gaussian cleaner at
-    levels 0.0 and 0.1: level 0.0 equals the same predictions evaluated
-    directly, and rows 1-3 are launched for every batch."""
-    import numpy as np
+    ``fast_forward`` (bf16) serving the weights phase 14's CLI trained, on
+    the CLI's test split against its true keypoints, at the kit's default
+    levels (0.0, 0.1, 0.2, 0.4; AWGN, no cleaner): level 0.0 equals the
+    same predictions evaluated directly, PCK@20 at 0.4 is below PCK@20 at
+    0.0, and rows 1-3 are launched for every batch."""
     from wiflow_tpu_torch.core.config import ModelConfig
     from wiflow_tpu_torch.metrics.metrics import mpjpe, pck_correct_fractions
     from wiflow_tpu_torch.metrics.mmfi_metrics import pa_mpjpe
     from wiflow_tpu_torch.models.fast import fast_forward, pack_fast
-    from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
-    from wiflow_tpu_torch.robustness import (
-        evaluate_robustness, gaussian_filter,
-    )
+    from wiflow_tpu_torch.robustness import evaluate_robustness
     from wiflow_tpu_torch.robustness.evaluate import THRESHOLDS
-    model = WiFlowPoseModel(ModelConfig(compute_dtype="float32"), device=dev,
-                            generator=torch.Generator().manual_seed(SEED))
-    nontrivial_stats(model)
-    packed = pack_fast(model.state_dict(), ModelConfig(), device=dev)
-    del model
-    rng = np.random.default_rng(SEED)
-    csi = rng.standard_normal((SWEEP_WINDOWS, 540, 20)).astype(np.float32)
-    batch = TRAIN_BATCH
-    nb = SWEEP_WINDOWS // batch
-    # the served keypoints of the clean windows are the targets
-    kp = torch.cat([fast_forward(packed, torch.from_numpy(
-        csi[i:i + batch]).to(dev)) for i in range(0, SWEEP_WINDOWS, batch)])
+    sd, (csi, kp) = trained
+    packed = pack_fast(sd, ModelConfig(), device=dev)
+    batch = SWEEP_BATCH
+    nb = len(csi) // batch
+    levels = (0.0, 0.1, 0.2, 0.4)
     reset_launches(all_kernels)
     t0 = time.perf_counter()
-    res = evaluate_robustness(lambda x: fast_forward(packed, x), csi,
-                              kp.cpu().numpy(), noise_levels=(0.0, 0.1),
-                              cleaner="gaussian", batch_size=batch,
+    res = evaluate_robustness(lambda x: fast_forward(packed, x), csi, kp,
+                              noise_levels=levels, batch_size=batch,
                               seed=SEED, device=dev)
     wall = time.perf_counter() - t0
-    expect_launches("evaluate_robustness over fast_forward, 2 levels",
-                    read_launches(all_kernels),
-                    {"tcn_level": 4 * nb * 2, "conv_stack": nb * 2,
-                     "axial_attention": 2 * nb * 2})
-    preds = []
-    for i in range(0, SWEEP_WINDOWS, batch):
-        x = torch.from_numpy(csi[i:i + batch]).to(dev)
-        preds.append(fast_forward(packed, gaussian_filter(x[:, None])
-                                  .reshape(x.shape)))
-    pred = torch.cat(preds)
+    expect_launches(f"evaluate_robustness over fast_forward, {len(levels)} "
+                    f"levels", read_launches(all_kernels),
+                    {"tcn_level": 4 * nb * len(levels),
+                     "conv_stack": nb * len(levels),
+                     "axial_attention": 2 * nb * len(levels)})
+    pred = torch.cat([fast_forward(packed, torch.from_numpy(
+        csi[i:i + batch]).to(dev)) for i in range(0, nb * batch, batch)])
+    target = torch.from_numpy(kp[:len(pred)]).to(dev)
     direct = {f"pck@{t}": float(v) for t, v in zip(
-        THRESHOLDS, pck_correct_fractions(pred, kp, THRESHOLDS).tolist())}
-    direct["mpjpe"] = float(mpjpe(pred, kp))
-    direct["pa_mpjpe"] = float(pa_mpjpe(pred, kp))
+        THRESHOLDS, pck_correct_fractions(pred, target, THRESHOLDS).tolist())}
+    direct["mpjpe"] = float(mpjpe(pred, target))
+    direct["pa_mpjpe"] = float(pa_mpjpe(pred, target))
     if res[0.0] != direct:
         raise AssertionError(f"level 0.0 {res[0.0]} != the direct "
                              f"evaluation {direct}")
-    log(f"  (g) evaluate_robustness over fast_forward, {SWEEP_WINDOWS} "
-        f"windows, batch {batch}, Gaussian cleaner: {wall:.4f} s for 2 "
-        f"levels; level 0.0 equals the direct evaluation; PCK@20 against "
-        f"the clean served keypoints: 0.0 {100 * res[0.0]['pck@0.2']:.2f}%, "
-        f"0.1 {100 * res[0.1]['pck@0.2']:.2f}%; MPJPE "
-        f"{res[0.0]['mpjpe']:.5f} / {res[0.1]['mpjpe']:.5f}")
+    log(f"  (g) evaluate_robustness over fast_forward of phase 14's trained "
+        f"weights, the CLI's test split ({nb * batch} of {len(csi)} windows,"
+        f" batch {batch}), AWGN, true keypoints: {wall:.4f} s for "
+        f"{len(levels)} levels; level 0.0 equals the direct evaluation")
+    for lv in levels:
+        log(f"      level {lv}: PCK@20 {100 * res[lv]['pck@0.2']:.2f}%, "
+            f"PCK@50 {100 * res[lv]['pck@0.5']:.2f}%, MPJPE "
+            f"{res[lv]['mpjpe']:.5f}, PA-MPJPE {res[lv]['pa_mpjpe']:.5f}")
+    if not res[0.4]["pck@0.2"] < res[0.0]["pck@0.2"]:
+        raise AssertionError(f"PCK@20 does not fall with the noise: "
+                             f"{res[0.0]['pck@0.2']} at 0.0, "
+                             f"{res[0.4]['pck@0.2']} at 0.4")
+    SUMMARY.append("sweep PCK@20 " + " / ".join(
+        f"{100 * res[lv]['pck@0.2']:.2f}" for lv in levels)
+        + f" % at levels {levels}")
 
 
-def robustness_slice(dev, all_kernels):
-    """Phase 18: the robustness kit on the card."""
+def robustness_slice(dev, all_kernels, trained):
+    """Phase 18: the robustness kit on the card; ``trained`` is phase 14's
+    best weights and test split, which the sweep serves."""
     log("phase 18: the robustness kit on the card (HPE-Li's zoo, the "
         "denoising AEs, the robustness CLIs, the flagship swept)")
     t0 = time.perf_counter()
@@ -4267,11 +4526,158 @@ def robustness_slice(dev, all_kernels):
     greedy_denoiser(dev)
     with tempfile.TemporaryDirectory() as tmp:
         robustness_clis(dev, all_kernels, tmp)
-    flagship_sweep(dev, all_kernels)
+    flagship_sweep(dev, all_kernels, trained)
     torch.cuda.empty_cache()
     wall = time.perf_counter() - t0
     log(f"  phase 18: {wall:.1f} s")
     SUMMARY.append(f"phase 18 {wall:.1f} s")
+
+
+def demo_slice(dev, all_kernels):
+    """Phase 19: the demo CLIs on the card, cut in windows and epochs,
+    never widths: ``convergence_demo`` (in this process, its train
+    kernels counted), ``kill_resume_demo`` (its runs are subprocesses:
+    killed after epoch 2's bundle, resumed at epoch 3, the histories held
+    together at the JAX demo's tolerance) and ``loso_demo`` (5 folds, in
+    this process)."""
+    log("phase 19: the demo CLIs on the card")
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "convergence")
+        argv = ["--windows", str(DEMO_WINDOWS), "--epochs", str(DEMO_EPOCHS),
+                "--batch_size", str(TRAIN_BATCH), "--no_videos",
+                "--output_dir", out]
+        reset_launches(all_kernels)
+        with watched_steps(all_kernels, augmented=False) as seen:
+            text = cli_main(argv, "convergence_demo")
+        steps = seen["steps"]
+        expect_launches(f"convergence_demo ({steps} steps)",
+                        read_launches(all_kernels),
+                        {n: 2 * steps for n in TRAIN_KERNELS})
+        with open(os.path.join(out, "run_summary.json")) as f:
+            summary = json.load(f)
+        n_train = int(DEMO_WINDOWS * 0.7)
+        if summary["epochs_run"] != DEMO_EPOCHS or "[done]" not in text \
+                or steps != DEMO_EPOCHS * (n_train // TRAIN_BATCH):
+            raise AssertionError(f"convergence_demo: {summary}")
+        if not all(math.isfinite(v) for v in summary["test_metrics"].values()):
+            raise AssertionError(
+                f"convergence_demo: {summary['test_metrics']}")
+        rate = n_train * DEMO_EPOCHS / summary["train_wall_clock_sec"]
+        log(f"  convergence_demo summary: {json.dumps(summary)}")
+        log(f"  convergence_demo: {DEMO_EPOCHS} epochs of {n_train} windows "
+            f"in {summary['train_wall_clock_sec']} s (train_wall_clock_sec, "
+            f"validation and test included) = {rate:.1f} windows/s; data "
+            f"made on the card in {summary['data_gen_sec']} s")
+
+        kr = os.path.join(tmp, "kill_resume")
+        cli_main(["--windows", str(KILL_WINDOWS), "--epochs",
+                  str(KILL_EPOCHS), "--kill_epoch", str(KILL_EPOCH),
+                  "--output_dir", kr], "kill_resume_demo")
+        with open(os.path.join(kr, "kill_resume_summary.json")) as f:
+            krs = json.load(f)
+        cmp_ = krs["history_compare"]
+        if not cmp_["identical_within_tol"] or \
+                cmp_["epochs_compared"] != KILL_EPOCHS:
+            raise AssertionError(f"kill/resume: {cmp_}")
+        if f"continuing from epoch {KILL_EPOCH + 1} " not in \
+                krs["run_b"]["resume_line"]:
+            raise AssertionError(f"kill/resume: {krs['run_b']}")
+        log(f"  kill_resume_demo: killed mid-epoch {KILL_EPOCH + 1}, "
+            f"{krs['run_b']['resume_line']!r}; {cmp_['epochs_compared']} "
+            f"epochs compared, identical within tolerance, max_abs_diff "
+            f"{cmp_['max_abs_diff']:.3e}")
+
+        lo = os.path.join(tmp, "loso")
+        reset_launches(all_kernels)
+        cli_main(["--per_subject", str(LOSO_PER_SUBJECT), "--epochs",
+                  str(LOSO_EPOCHS), "--output_dir", lo], "loso_demo")
+        launches = read_launches(all_kernels)
+        if not all(launches[n] for n in TRAIN_KERNELS):
+            raise AssertionError(f"loso_demo launched {launches}")
+        with open(os.path.join(lo, "loso_summary.json")) as f:
+            ls = json.load(f)
+        with open(os.path.join(lo, "loso_table.md")) as f:
+            rows = f.read().splitlines()[2:]
+        if [r["subject"] for r in ls["folds"]] != [1, 2, 3, 4, 5] or \
+                len(rows) != 6:
+            raise AssertionError(f"loso_demo: {ls}")
+        log(f"  loso_demo: 5 folds, launches {json.dumps(launches)}; "
+            f"average {json.dumps(ls['average'])}")
+    wall = time.perf_counter() - t0
+    log(f"  phase 19: {wall:.1f} s")
+    SUMMARY.append(f"convergence_demo {rate:.1f} windows/s; kill/resume "
+                   f"max_abs_diff {cmp_['max_abs_diff']:.3e}; phase 19 "
+                   f"{wall:.1f} s")
+
+
+def data_parallel_slice(dev, all_kernels):
+    """Phase 20: ``train_pose_model`` for one epoch inside a process group
+    of one rank (NCCL) against the same epoch without it, stock ops and
+    fused: history, weights and predictions bit for bit, and the same
+    launches of every kernel; then ``cli.run`` asking for one rank more
+    than the cards must exit nonzero, saying so."""
+    import contextlib as cl
+    from wiflow_tpu_torch.core.config import (
+        Config, MeshConfig, ModelConfig, TrainConfig,
+    )
+    from wiflow_tpu_torch.parallel import mesh
+    from wiflow_tpu_torch.train.loop import train_pose_model
+    log("phase 20: data parallel at world size 1 (NCCL) against no process "
+        "group")
+    t0 = time.perf_counter()
+    for name, cfg in (("stock ops", ModelConfig()),
+                      ("fused", ModelConfig(**FUSED))):
+        xs, ys = train_data(dev, cfg)
+        n_tr, n_va = TRAIN_WINDOWS * 3 // 4, TRAIN_WINDOWS // 8
+        splits = ((xs[:n_tr], ys[:n_tr]),
+                  (xs[n_tr:n_tr + n_va], ys[n_tr:n_tr + n_va]),
+                  (xs[n_tr + n_va:], ys[n_tr + n_va:]))
+        conf = Config(model=cfg, train=TrainConfig(
+            batch_size=TRAIN_BATCH, num_epochs=1, seed=SEED,
+            data_dtype="bfloat16"), mesh=MeshConfig(num_devices=1))
+        steps = n_tr // TRAIN_BATCH
+        want = {n: 2 * steps for n in TRAIN_KERNELS}
+        if cfg.tcn_train_impl == "fused":
+            want.update({n: STAGE_LAUNCHES[n] * steps for n in STAGE_ATTRS})
+        runs = []
+        for grouped in (False, True):
+            ctx = mesh.process_group(1, dev) if grouped else cl.nullcontext()
+            reset_launches(all_kernels)
+            with ctx:
+                if grouped and mesh.world_size() != 1:
+                    raise AssertionError("the process group is not 1 rank")
+                r = train_pose_model(*splits, conf, device=dev, verbose=False)
+            got = read_launches(all_kernels)
+            expect_launches(f"one epoch, {name}, "
+                            f"{'in' if grouped else 'without'} a process "
+                            f"group", got, want)
+            runs.append(r)
+        a, b = runs
+        same = (a.history == b.history and a.test_metrics == b.test_metrics
+                and all(torch.equal(v, b.state_dict[k])
+                        for k, v in a.state_dict.items())
+                and (a.predictions == b.predictions).all())
+        if not same:
+            raise AssertionError(f"{name}: the epoch in a process group of "
+                                 f"one rank differs from the epoch without")
+        log(f"  {name}: one epoch ({steps} steps) in a process group of one "
+            f"rank equals the epoch without one bit for bit (history, test "
+            f"metrics, weights, predictions); launches "
+            f"{json.dumps({n: v for n, v in got.items() if v})}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    ranks = torch.cuda.device_count() + 1
+    proc = subprocess.run([sys.executable, "-m", "wiflow_tpu_torch.cli.run",
+                           "--gpu", str(ranks), "--epochs", "1"], cwd=root,
+                          capture_output=True, text=True, timeout=300)
+    if proc.returncode == 0 or "more ranks than devices" not in proc.stderr:
+        raise AssertionError(f"cli.run --gpu {ranks}: rc {proc.returncode}"
+                             f"\n{proc.stderr[-2000:]}")
+    log(f"  cli.run --gpu {ranks} on {ranks - 1} card(s): exit "
+        f"{proc.returncode}, " + proc.stderr.strip().splitlines()[-1])
+    wall = time.perf_counter() - t0
+    log(f"  phase 20: {wall:.1f} s")
+    SUMMARY.append(f"data parallel at 1 rank bit-equal; phase 20 {wall:.1f} s")
 
 
 def main() -> int:
@@ -4303,7 +4709,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- phase 14: the CLI, resume, and the trained weights served ----------
-    cli_slice(dev, all_kernels)
+    trained = cli_slice(dev, all_kernels)
 
     # -- phase 15: MM-Fi training on the card ---------------------------------
     mmfi_training(dev, all_kernels, train16["mmfi"], train_errs["mmfi"],
@@ -4316,7 +4722,14 @@ def main() -> int:
     baseline_slice(dev, all_kernels)
 
     # -- phase 18: the robustness kit -----------------------------------------
-    robustness_slice(dev, all_kernels)
+    robustness_slice(dev, all_kernels, trained)
+    del trained
+
+    # -- phase 19: the demo CLIs ---------------------------------------------
+    demo_slice(dev, all_kernels)
+
+    # -- phase 20: data parallelism at one rank ------------------------------
+    data_parallel_slice(dev, all_kernels)
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -111,8 +111,8 @@ def test_flags_match_the_jax_clis():
 
 
 def test_refusals(data_dir, tmp_path, capsys):
-    with pytest.raises(SystemExit, match="multi-GPU"):
-        run.main(["--gpu", "2", "--device", "cpu"])
+    with pytest.raises(ValueError, match="more ranks than devices"):
+        run.main(["--gpu", str(torch.cuda.device_count() + 2)])
     assert run.main(["--data_dir", str(tmp_path / "none"), "--device",
                      "cpu"]) == 2
     assert "no preprocessed artifacts" in capsys.readouterr().err

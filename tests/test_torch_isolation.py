@@ -406,3 +406,30 @@ def test_robustness_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
             main(["--epochs", "1", "--output_dir", str(tmp_path / "out"),
                   "--dataset_root", str(tmp_path / "mmfi")])
     assert not os.path.exists(tmp_path / "mmfi")
+
+
+# The last modules: data parallelism and the demo CLIs import nothing the
+# card's machine lacks, and no JAX.
+LAST_MODULES = ("parallel", "parallel.mesh", "cli.convergence_demo",
+                "cli.kill_resume_demo", "cli.loso_demo")
+
+
+def test_parallel_and_demo_modules_import_without_them():
+    block = f"for name in {BLOCKED!r}:"
+    r = _run(["-c", _IMPORT_ALL.replace(
+        block, f"for name in {BLOCKED + KIT_BLOCKED!r}:", 1)])
+    assert r.returncode == 0, r.stdout + r.stderr
+    for module in LAST_MODULES:
+        assert f"wiflow_tpu_torch.{module}" in r.stdout.split(), module
+
+
+def test_demo_entry_points_need_cuda_or_an_explicit_cpu(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is usable")
+    from wiflow_tpu_torch.cli import convergence_demo, loso_demo
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        convergence_demo.main(["--windows", "20", "--output_dir",
+                               str(tmp_path / "c")])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        loso_demo.main(["--per_subject", "8", "--subjects", "2",
+                        "--output_dir", str(tmp_path / "l")])

@@ -32,7 +32,8 @@ import time
 from wiflow_tpu_torch.cli.convergence_demo import synth_windows
 from wiflow_tpu_torch.cli.run import set_seed
 from wiflow_tpu_torch.core.config import (
-    Config, ModelConfig, OptimConfig, TrainConfig, resolve_device,
+    Config, MeshConfig, ModelConfig, OptimConfig, TrainConfig,
+    resolve_device,
 )
 from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
 from wiflow_tpu_torch.train.loop import train_pose_model
@@ -133,7 +134,7 @@ def main(argv=None) -> int:
                               num_epochs=args.epochs, patience=10 ** 6,
                               seed=args.seed, data_dtype=data_dtype,
                               optim=OptimConfig(lr=lr, weight_decay=5e-5)),
-            output_dir=run_dir)
+            mesh=MeshConfig(num_devices=1), output_dir=run_dir)
         t0 = time.time()
         result = train_pose_model(train, val, test, cfg, run_dir,
                                   resume=True, device=dev)

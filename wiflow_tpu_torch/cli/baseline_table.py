@@ -48,7 +48,7 @@ from wiflow_tpu_torch.cli.run_baseline import (
     BASELINE_SPECS, build_model, optim_config,
 )
 from wiflow_tpu_torch.core.config import (
-    Config, ModelConfig, OptimConfig, TrainConfig, exact_fp32,
+    Config, MeshConfig, ModelConfig, OptimConfig, TrainConfig, exact_fp32,
     resolve_device,
 )
 from wiflow_tpu_torch.data.pam import pam_train_kwargs
@@ -216,7 +216,7 @@ def main(argv=None) -> int:
             train=TrainConfig(batch_size=bsz, num_epochs=n_ep,
                               patience=10 ** 6, seed=args.seed,
                               data_dtype=data_dtype, optim=optim),
-            output_dir=run_dir)
+            mesh=MeshConfig(num_devices=1), output_dir=run_dir)
         if dev.type == "cuda":
             torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.time()

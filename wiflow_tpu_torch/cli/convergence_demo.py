@@ -1,9 +1,20 @@
-"""Synthetic CSI windows made on the device: ``synth_windows``.
+"""Reference-scale convergence run on synthetic CSI made on the device.
 
-Counterpart of ``synth_windows`` in ``wiflow_tpu/cli/convergence_demo.py``
-(the windows that ``cli/ablation_demo.py`` and ``cli/baseline_table.py``
-train on).  The module's ``main``, the reference-scale convergence run,
-is not ported yet (ROADMAP.md queue 1, item 7).
+Counterpart of ``wiflow_tpu/cli/convergence_demo.py``: ``synth_windows``
+(the windows that ``cli/ablation_demo.py``, ``cli/baseline_table.py`` and
+``cli/loso_demo.py`` train on too) and ``main``, flag for flag with the
+JAX CLI's defaults plus ``--device`` (``cuda``, the default, or ``cpu``):
+70/15/15 splits drawn each into its own buffer (seeds ``+0/+101/+202``),
+trained in bf16 storage on one device, then the artifacts of
+``eval/artifacts.py`` (the videos skipped, with a printed line, where
+OpenCV is missing) and ``run_summary.json``.  ``--resume`` continues from
+``latest_checkpoint.pkl`` in ``--output_dir`` (``cli/kill_resume_demo.py``
+reads the ``[data]``, ``Epoch k/``, ``[resume]``, ``[early-stop]`` and
+``[done]`` lines).
+
+Usage:
+  python -m wiflow_tpu_torch.cli.convergence_demo --windows 360000 \
+      --epochs 50 --output_dir measured/convergence
 
 The generative structure is the JAX function's: per-window smooth pose
 trajectories (sums of random sinusoids), then a CSI observation model:
@@ -30,13 +41,22 @@ windows have the JAX windows' distribution, not their values.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
+import json
 import math
+import os
+import sys
+import time
 from typing import Tuple
 
 import torch
 
-from wiflow_tpu_torch.core.config import resolve_device
+from wiflow_tpu_torch.core.config import (
+    Config, MeshConfig, OptimConfig, TrainConfig, resolve_device,
+)
+from wiflow_tpu_torch.eval.artifacts import write_all_artifacts
+from wiflow_tpu_torch.train.loop import train_pose_model
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,3 +175,84 @@ def synth_windows(n: int, seed: int, num_subcarriers: int = 540,
             world, base, amp, freq, phase, noise, mode=mode,
             csi_gain=csi_gain, keypoints=keypoints)
     return xbuf, ybuf
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(description="reference-scale convergence run")
+    p.add_argument("--windows", type=int, default=360_000)
+    p.add_argument("--epochs", type=int, default=50)
+    p.add_argument("--batch_size", type=int, default=256)
+    p.add_argument("--lr", type=float, default=1e-4)       # train.py:105
+    p.add_argument("--output_dir", type=str,
+                   default="measured/convergence")
+    p.add_argument("--seed", type=int, default=42)
+    p.add_argument("--no_videos", action="store_true")
+    p.add_argument("--use_augmentation", action="store_true",
+                   help="train.py:187-193 on-device augmentation policy")
+    p.add_argument("--patience", type=int, default=5)   # train.py:382
+    p.add_argument("--resume", action="store_true",
+                   help="continue from latest_checkpoint.pkl in "
+                        "--output_dir (kill/resume demos)")
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="where to train: the CUDA card (default) or the CPU")
+    args = p.parse_args(argv)
+
+    dev = resolve_device(args.device)
+    t0 = time.time()
+    n = args.windows
+    n_tr, n_va = int(n * 0.7), int(n * 0.15)
+    # a buffer a split, on the device: no host copy, no second buffer
+    train = synth_windows(n_tr, args.seed, device=dev)
+    val = synth_windows(n_va, args.seed + 101, device=dev)
+    test = synth_windows(n - n_tr - n_va, args.seed + 202, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    gen_sec = time.time() - t0
+    print(f"[data] {n} windows generated on-device in {gen_sec:.1f}s "
+          f"(train {n_tr} / val {n_va} / test {n - n_tr - n_va})")
+
+    cfg = Config(
+        train=TrainConfig(batch_size=args.batch_size, num_epochs=args.epochs,
+                          patience=args.patience, seed=args.seed,
+                          use_augmentation=args.use_augmentation,
+                          data_dtype="bfloat16",
+                          optim=OptimConfig(lr=args.lr, weight_decay=5e-5)),
+        mesh=MeshConfig(num_devices=1), output_dir=args.output_dir)
+
+    t1 = time.time()
+    result = train_pose_model(train, val, test, cfg, args.output_dir,
+                              resume=args.resume, device=dev)
+    train_sec = time.time() - t1
+    paths = write_all_artifacts(result, args.output_dir,
+                                make_videos=not args.no_videos)
+
+    summary = {
+        "windows": n,
+        "epochs_requested": args.epochs,
+        "epochs_run": result.epochs_run,
+        "best_epoch": result.best_epoch + 1,
+        "early_stopped": result.epochs_run < args.epochs,
+        "train_wall_clock_sec": round(train_sec, 1),
+        "data_gen_sec": round(gen_sec, 1),
+        "test_metrics": {k: round(float(v), 6)
+                         for k, v in result.test_metrics.items()},
+        "final_lr": float(result.history["lr"][-1]),
+        "lr_reductions": sorted({float(v) for v in result.history["lr"]},
+                                reverse=True),
+        "val_mpe_trajectory": [round(float(v), 5)
+                               for v in result.history["val_mpe"]],
+        "val_pck20_trajectory": [round(float(v), 5)
+                                 for v in result.history["val_pck"]],
+        "artifacts": sorted(os.path.basename(p) for p in paths.values()),
+    }
+    out = os.path.join(args.output_dir, "run_summary.json")
+    with open(out, "w", encoding="utf-8") as fd:
+        json.dump(summary, fd, indent=2)
+    print(f"[done] {result.epochs_run} epochs in {train_sec / 60:.1f} min "
+          f"| test PCK@20 {result.test_metrics['pck@0.2'] * 100:.2f}% "
+          f"MPJPE {result.test_metrics['mpe']:.4f} m | summary -> {out}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -6,7 +6,10 @@ defaults (ref run.py:32-41, with ``--output_dir``, ``--data_dir`` and
 plus ``--device``: ``cuda`` (the default; it raises where there is no
 card) or ``cpu``.  It trains (resuming from ``latest_checkpoint.pkl`` in
 ``--output_dir`` unless ``--no_resume``), then writes the artifacts of
-``eval/artifacts.py``.
+``eval/artifacts.py``.  ``--gpu N`` trains data-parallel on N ranks
+(``parallel/mesh.py``), which the command starts itself: one a CUDA
+device (more than there are raises), or N gloo processes with
+``--device cpu``; ``auto`` is every CUDA device (one process on the CPU).
 
 Usage:
   python -m wiflow_tpu_torch.cli.run --epochs 50 --batch_size 64 \\
@@ -33,7 +36,9 @@ from wiflow_tpu_torch.data.splits import (
     expand_to_samples, file_level_split, infer_subject, loso_split,
 )
 from wiflow_tpu_torch.data.synthetic import make_preprocessed_dataset
+from wiflow_tpu_torch.core.config import MeshConfig
 from wiflow_tpu_torch.eval.artifacts import write_all_artifacts
+from wiflow_tpu_torch.parallel import mesh
 from wiflow_tpu_torch.train.loop import train_pose_model
 
 
@@ -51,8 +56,8 @@ def set_seed(seed: int = 42) -> None:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="WiFlow training (PyTorch/CUDA)")
     p.add_argument("--gpu", type=str, default="auto",
-                   help="device count: 'auto' or 1 (kept for reference-CLI "
-                        "compatibility; multi-GPU training is not ported)")
+                   help="ranks of data-parallel training: 'auto' (every "
+                        "CUDA device) or a count")
     p.add_argument("--batch_size", type=int, default=64)
     p.add_argument("--epochs", type=int, default=50)
     p.add_argument("--lr", type=float, default=1e-4)
@@ -89,15 +94,16 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _device_count(gpu: str) -> int:
-    """The JAX CLI's reading of ``--gpu``: 'auto' or '' for all devices,
-    else the first comma-separated number (0 counts as 1)."""
+def _device_count(gpu: str):
+    """The JAX CLI's reading of ``--gpu``: None (every device) for 'auto',
+    '' or no number, else the first comma-separated number (0 counts as
+    1)."""
     if gpu in ("auto", ""):
-        return 1
+        return None
     try:
         return max(1, int(gpu.split(",")[0]) or 1)
     except ValueError:
-        return 1
+        return None
 
 
 @contextlib.contextmanager
@@ -116,21 +122,26 @@ def _profiled(profile_dir):
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if _device_count(args.gpu) != 1:
-        raise SystemExit(f"--gpu {args.gpu}: multi-GPU training is not "
-                         f"ported; run on one device")
+    num_devices = _device_count(args.gpu)
+    world = mesh.resolve_world(num_devices, args.device)
+    return mesh.run(_main, world, args.device, args, num_devices)
+
+
+def _main(args, num_devices) -> int:
+    """The run, in each rank."""
     set_seed(args.seed)
     torch.autograd.set_detect_anomaly(args.debug_nans)
     dev = resolve_device(args.device)
     data_dir = args.data_dir
-    if args.synthetic and not os.path.exists(
-            os.path.join(data_dir, "csi_windows.npy")):
-        print(f"[synthetic] generating dataset under {data_dir}/..")
-        root = os.path.dirname(os.path.abspath(data_dir)) or "."
-        made = make_preprocessed_dataset(root, num_files=20,
-                                         frames_per_file=200)
-        if os.path.abspath(made) != os.path.abspath(data_dir):
-            data_dir = made
+    with mesh.main_first():
+        if args.synthetic and not os.path.exists(
+                os.path.join(data_dir, "csi_windows.npy")):
+            print(f"[synthetic] generating dataset under {data_dir}/..")
+            root = os.path.dirname(os.path.abspath(data_dir)) or "."
+            made = make_preprocessed_dataset(root, num_files=20,
+                                             frames_per_file=200)
+            if os.path.abspath(made) != os.path.abspath(data_dir):
+                data_dir = made
 
     if not os.path.exists(os.path.join(data_dir, "csi_windows.npy")):
         print(f"error: no preprocessed artifacts in {data_dir!r}. Run "
@@ -177,12 +188,15 @@ def main(argv=None) -> int:
             patience=args.patience, use_augmentation=args.use_augmentation,
             seed=args.seed, grad_accum_steps=args.grad_accum_steps,
             optim=OptimConfig(lr=args.lr, weight_decay=args.weight_decay)),
+        mesh=MeshConfig(num_devices=num_devices),
         output_dir=args.output_dir,
     )
     with _profiled(args.profile_dir):
         result = train_pose_model(parts["train"], parts["val"], parts["test"],
                                   cfg, args.output_dir,
                                   resume=not args.no_resume, device=dev)
+    if not mesh.is_main():
+        return 0
     paths = write_all_artifacts(result, args.output_dir,
                                 make_videos=not args.no_videos)
     print("[artifacts] " + ", ".join(sorted(paths)))

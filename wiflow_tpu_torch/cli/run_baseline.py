@@ -16,7 +16,9 @@ PAM labels come from ``--pam_root`` (the reference's ``wisppn_labels{N}``
 coordinates, unit confidence; a notice says so), so that every baseline
 runs on any keypoint dataset.  Each model is built at its published
 widths; fp32 runs use full-precision fp32 products (no TF32), as the JAX
-baselines' ``Precision.HIGHEST`` does.
+baselines' ``Precision.HIGHEST`` does.  It trains data-parallel over
+every CUDA device (``parallel/mesh.py``; the JAX CLI's ``MeshConfig()``),
+one process on the CPU.
 
 Usage:
   python -m wiflow_tpu_torch.cli.run_baseline --model hpeli --epochs 50 \\
@@ -34,7 +36,7 @@ import torch
 
 from wiflow_tpu_torch.cli.run import set_seed
 from wiflow_tpu_torch.core.config import (
-    Config, OptimConfig, TrainConfig, exact_fp32, resolve_device,
+    Config, MeshConfig, OptimConfig, TrainConfig, exact_fp32, resolve_device,
 )
 from wiflow_tpu_torch.data.dataset import CSIKeypointsDataset
 from wiflow_tpu_torch.data.pam import (
@@ -46,6 +48,7 @@ from wiflow_tpu_torch.eval.artifacts import write_all_artifacts
 from wiflow_tpu_torch.models.baselines import (
     HPELiNet, PerUnet, WiSPPN, WPformer,
 )
+from wiflow_tpu_torch.parallel import mesh
 from wiflow_tpu_torch.train.loop import train_pose_model
 
 BASELINE_SPECS = {
@@ -129,17 +132,25 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    world = mesh.resolve_world(None, args.device)
+    return mesh.run(_main, world, args.device, args)
+
+
+def _main(args) -> int:
+    """The run, in each rank: data-parallel over every CUDA device, as the
+    JAX CLI's ``MeshConfig()`` (one process on the CPU)."""
     set_seed(args.seed)
     exact_fp32()
     dev = resolve_device(args.device)
     spec = BASELINE_SPECS[args.model]
 
     data_dir = args.data_dir
-    if args.synthetic and not os.path.exists(
-            os.path.join(data_dir, "csi_windows.npy")):
-        root = os.path.dirname(os.path.abspath(data_dir)) or "."
-        data_dir = make_preprocessed_dataset(root, num_files=20,
-                                             frames_per_file=200)
+    with mesh.main_first():
+        if args.synthetic and not os.path.exists(
+                os.path.join(data_dir, "csi_windows.npy")):
+            root = os.path.dirname(os.path.abspath(data_dir)) or "."
+            data_dir = make_preprocessed_dataset(root, num_files=20,
+                                                 frames_per_file=200)
     if not os.path.exists(os.path.join(data_dir, "csi_windows.npy")):
         print(f"error: no preprocessed artifacts in {data_dir!r}",
               file=sys.stderr)
@@ -169,13 +180,15 @@ def main(argv=None) -> int:
         train=TrainConfig(batch_size=args.batch_size, num_epochs=args.epochs,
                           patience=args.patience, seed=args.seed,
                           optim=optim_config(spec, lr, args.epochs)),
-        output_dir=args.output_dir)
+        mesh=MeshConfig(), output_dir=args.output_dir)
     model = build_model(args.model, args.compute_dtype, device=dev,
                         seed=args.seed)
     result = train_pose_model(parts["train"], parts["val"], parts["test"],
                               cfg, args.output_dir, model=model,
                               resume=not args.no_resume,
                               **pam_train_kwargs(spec))
+    if not mesh.is_main():
+        return 0
     write_all_artifacts(result, args.output_dir)
     print("[timings] " + json.dumps(result.timings))
     print(f"[done] {args.model}: test MPJPE {result.test_metrics['mpe']:.4f}"

@@ -14,7 +14,9 @@ baselines re-targeted to MM-Fi (ref cross_dataset_test/): ``hpeli``
 regresses the 2-D projection of the 17 keypoints, ``wpformer`` the 3-D
 keypoints under a mask of the keypoints whose ground truth exists
 (metafi.py:750-753), ``perunet`` the 3-D keypoints, ``wisppn`` a 3x17x17
-PAM under the confidence-weighted MSE, scored on its diagonal.
+PAM under the confidence-weighted MSE, scored on its diagonal.  It trains
+data-parallel over every CUDA device (``parallel/mesh.py``; the JAX CLI's
+``MeshConfig()``), one process on the CPU.
 
 Usage:
   python -m wiflow_tpu_torch.cli.run_mmfi --dataset_root /data/MMFi \\
@@ -32,8 +34,8 @@ import torch
 
 from wiflow_tpu_torch.cli.run import set_seed
 from wiflow_tpu_torch.core.config import (
-    MMFI_SKELETON_CONNECTIONS, Config, OptimConfig, TrainConfig, exact_fp32,
-    resolve_device,
+    MMFI_SKELETON_CONNECTIONS, Config, MeshConfig, OptimConfig, TrainConfig,
+    exact_fp32, resolve_device,
 )
 from wiflow_tpu_torch.data.mmfi import (
     generate_synthetic_mmfi, make_dataset, split_val_test,
@@ -51,6 +53,7 @@ from wiflow_tpu_torch.models.baselines import (
 from wiflow_tpu_torch.models.wiflow_mmfi import (
     MMFiModelConfig, WiFlowMMFiModel,
 )
+from wiflow_tpu_torch.parallel import mesh
 from wiflow_tpu_torch.train.loop import train_pose_model
 
 DEFAULT_CONFIG = {
@@ -109,6 +112,13 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    world = mesh.resolve_world(None, args.device)
+    return mesh.run(_main, world, args.device, args)
+
+
+def _main(args) -> int:
+    """The run, in each rank: data-parallel over every CUDA device, as the
+    JAX CLI's ``MeshConfig()`` (one process on the CPU)."""
     set_seed(args.seed)
     if args.model != "wiflow":
         exact_fp32()
@@ -120,24 +130,26 @@ def main(argv=None) -> int:
         with open(args.config, "r", encoding="utf-8") as fd:
             config.update(yaml.safe_load(fd))
 
-    if args.synthetic and not os.path.isdir(args.dataset_root):
-        print(f"[synthetic] generating miniature MM-Fi at {args.dataset_root}")
-        generate_synthetic_mmfi(args.dataset_root,
-                                subjects=("S01", "S02", "S11"),
-                                actions=("A01", "A02"), frames=48)
+    with mesh.main_first():
+        if args.synthetic and not os.path.isdir(args.dataset_root):
+            print(f"[synthetic] generating miniature MM-Fi at "
+                  f"{args.dataset_root}")
+            generate_synthetic_mmfi(args.dataset_root,
+                                    subjects=("S01", "S02", "S11"),
+                                    actions=("A01", "A02"), frames=48)
 
-    if not os.path.isdir(args.dataset_root):
-        print(f"error: MM-Fi root {args.dataset_root!r} not found "
-              f"(pass --synthetic for a test tree)", file=sys.stderr)
-        return 2
+        if not os.path.isdir(args.dataset_root):
+            print(f"error: MM-Fi root {args.dataset_root!r} not found "
+                  f"(pass --synthetic for a test tree)", file=sys.stderr)
+            return 2
 
-    train_ds, val_ds = make_dataset(args.dataset_root, config)
-    print(f"[data] train {len(train_ds)} frames, val+test {len(val_ds)}")
-    os.makedirs(args.output_dir, exist_ok=True)
-    train_xy = train_ds.materialize(
-        os.path.join(args.output_dir, "mmfi_train_cache.npz"))
-    val_all = val_ds.materialize(
-        os.path.join(args.output_dir, "mmfi_val_cache.npz"))
+        train_ds, val_ds = make_dataset(args.dataset_root, config)
+        print(f"[data] train {len(train_ds)} frames, val+test {len(val_ds)}")
+        os.makedirs(args.output_dir, exist_ok=True)
+        train_xy = train_ds.materialize(
+            os.path.join(args.output_dir, "mmfi_train_cache.npz"))
+        val_all = val_ds.materialize(
+            os.path.join(args.output_dir, "mmfi_val_cache.npz"))
     vi, ti = split_val_test(len(val_ds))
     val_xy = (val_all[0][vi], val_all[1][vi])
     test_xy = (val_all[0][ti], val_all[1][ti])
@@ -150,7 +162,7 @@ def main(argv=None) -> int:
             patience=args.patience, seed=args.seed,
             optim=OptimConfig(lr=args.lr, weight_decay=1e-4,
                               plateau_patience=args.plateau_patience)),
-        output_dir=args.output_dir,
+        mesh=MeshConfig(), output_dir=args.output_dir,
     )
     # the model's labels and loss (ref cross_dataset_test/): wiflow,
     # wpformer and perunet regress 17x3 keypoints; hpeli the 2-D
@@ -182,6 +194,8 @@ def main(argv=None) -> int:
     result = train_pose_model(
         train_xy, val_xy, test_xy, cfg, args.output_dir, model=model,
         resume=not args.no_resume, **kwargs)
+    if not mesh.is_main():
+        return 0
     paths = write_all_artifacts(result, args.output_dir,
                                 make_videos=not args.no_videos,
                                 connections=MMFI_SKELETON_CONNECTIONS)

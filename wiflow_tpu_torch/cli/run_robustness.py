@@ -25,9 +25,13 @@ over the clean test split and the split at that level.
 Models: ``original_hpe``, ``dsknet_trans`` (DSKNetTransMMFi), ``basic_cnn``,
 ``denoiser_hpe`` (implies mode 1); WiPose: ``hpe_wipose``,
 ``dsknet_trans_wipose``.  They are fp32 (TF32 off), but DenoiserHPE, whose
-input is bf16 as in the JAX package.  ``--devices`` takes only 1: the port
-trains on one card.  ``--no_scan`` is accepted and changes nothing: the
-port's epochs are eager.  ``--config`` needs PyYAML.
+input is bf16 as in the JAX package.  ``--devices N`` trains each model
+data-parallel on N ranks (``parallel/mesh.py``), which the command starts
+itself (one a CUDA device; more than there are raises; with ``--device
+cpu``, gloo processes); every rank repeats mode 1's pre-training of the
+autoencoders by itself, and rank 0 alone writes.  ``--no_scan`` is
+accepted and changes nothing: the port's epochs are eager.  ``--config``
+needs PyYAML.
 
 Usage:
   python -m wiflow_tpu_torch.cli.run_robustness --model original_hpe \\
@@ -48,7 +52,7 @@ import torch
 from wiflow_tpu_torch.cli.run import set_seed
 from wiflow_tpu_torch.cli.run_mmfi import DEFAULT_CONFIG
 from wiflow_tpu_torch.core.config import (
-    Config, OptimConfig, TrainConfig, exact_fp32, resolve_device,
+    Config, MeshConfig, OptimConfig, TrainConfig, exact_fp32, resolve_device,
 )
 from wiflow_tpu_torch.data.mmfi import (
     generate_synthetic_mmfi, make_dataset, split_val_test,
@@ -58,6 +62,7 @@ from wiflow_tpu_torch.data.wipose import (
 )
 from wiflow_tpu_torch.metrics.metrics import pckh_fractions_fn
 from wiflow_tpu_torch.models.baselines import hpeli_zoo
+from wiflow_tpu_torch.parallel import mesh
 from wiflow_tpu_torch.robustness.denoiser import (
     DenoiserHPE, merge_denoiser, train_denoiser_stage,
 )
@@ -137,7 +142,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="the reference runs fixed epochs; no early stop")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--devices", type=int, default=None,
-                   help="cards to train on: only 1 (the default) here")
+                   help="ranks of data-parallel training (default: every "
+                        "CUDA device)")
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--synthetic_frames", type=int, default=48)
     p.add_argument("--synthetic_learnable", action="store_true",
@@ -159,33 +165,35 @@ def _load_mmfi(args):
         import yaml
         with open(args.config, "r", encoding="utf-8") as fd:
             config.update(yaml.safe_load(fd))
-    if args.synthetic and not os.path.isdir(args.dataset_root):
-        print(f"[synthetic] generating miniature MM-Fi at "
-              f"{args.dataset_root}")
-        subs = ("S01", "S02", "S03", "S11") if args.synthetic_learnable \
-            else ("S01", "S02", "S11")
-        generate_synthetic_mmfi(args.dataset_root, subjects=subs,
-                                actions=("A01", "A02"),
-                                frames=args.synthetic_frames,
-                                learnable=args.synthetic_learnable)
-    if not os.path.isdir(args.dataset_root):
-        raise FileNotFoundError(
-            f"MM-Fi root {args.dataset_root!r} not found "
-            f"(pass --synthetic for a test tree)")
-    train_ds, val_ds = make_dataset(args.dataset_root, config)
-    os.makedirs(args.output_dir, exist_ok=True)
-    train_xy = train_ds.materialize(
-        os.path.join(args.output_dir, "mmfi_train_cache.npz"))
-    val_all = val_ds.materialize(
-        os.path.join(args.output_dir, "mmfi_val_cache.npz"))
+    with mesh.main_first():
+        if args.synthetic and not os.path.isdir(args.dataset_root):
+            print(f"[synthetic] generating miniature MM-Fi at "
+                  f"{args.dataset_root}")
+            subs = ("S01", "S02", "S03", "S11") if args.synthetic_learnable \
+                else ("S01", "S02", "S11")
+            generate_synthetic_mmfi(args.dataset_root, subjects=subs,
+                                    actions=("A01", "A02"),
+                                    frames=args.synthetic_frames,
+                                    learnable=args.synthetic_learnable)
+        if not os.path.isdir(args.dataset_root):
+            raise FileNotFoundError(
+                f"MM-Fi root {args.dataset_root!r} not found "
+                f"(pass --synthetic for a test tree)")
+        train_ds, val_ds = make_dataset(args.dataset_root, config)
+        os.makedirs(args.output_dir, exist_ok=True)
+        train_xy = train_ds.materialize(
+            os.path.join(args.output_dir, "mmfi_train_cache.npz"))
+        val_all = val_ds.materialize(
+            os.path.join(args.output_dir, "mmfi_val_cache.npz"))
     vi, ti = split_val_test(len(val_ds))
     return (train_xy, (val_all[0][vi], val_all[1][vi]),
             (val_all[0][ti], val_all[1][ti]))
 
 
 def _load_wipose(args):
-    if args.synthetic and not os.path.isdir(args.wipose_root):
-        generate_synthetic_wipose(args.wipose_root, per_split=64)
+    with mesh.main_first():
+        if args.synthetic and not os.path.isdir(args.wipose_root):
+            generate_synthetic_wipose(args.wipose_root, per_split=64)
     train = WiPoseDataset(args.wipose_root, split="Train").materialize()
     test = WiPoseDataset(args.wipose_root, split="Test").materialize()
     n = len(test[0]) // 2
@@ -224,9 +232,12 @@ def _write_history(path: str, history) -> None:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.devices not in (None, 1):
-        raise SystemExit(f"--devices {args.devices}: the port trains on one "
-                         f"card (multi-GPU training is not ported)")
+    world = mesh.resolve_world(args.devices, args.device)
+    return mesh.run(_main, world, args.device, args)
+
+
+def _main(args) -> int:
+    """The run, in each rank."""
     set_seed(args.seed)
     exact_fp32()
     dev = resolve_device(args.device)
@@ -281,7 +292,7 @@ def main(argv=None) -> int:
                                   grad_clip_norm=None,
                                   schedule="linear_decay", decay_start=20,
                                   decay_end=50, plateau_patience_steps=None)),
-            output_dir=run_dir)
+            mesh=MeshConfig(num_devices=args.devices), output_dir=run_dir)
 
         if args.mode == 0 and mode0_cache is not None:
             model, result = mode0_cache
@@ -296,8 +307,9 @@ def main(argv=None) -> int:
                 init_state_dict=init_state_dict, frozen_params=frozen)
             if args.mode == 0:
                 mode0_cache = (model, result)
-            _write_history(os.path.join(run_dir, "training_history.csv"),
-                           result.history)
+            if mesh.is_main():
+                _write_history(os.path.join(run_dir, "training_history.csv"),
+                               result.history)
 
         # the post-training sweep of the test split (main.py's outer noise
         # loop evaluates the trained model at each level)
@@ -321,6 +333,8 @@ def main(argv=None) -> int:
               f"MPJPE {result.test_metrics['mpe']:.4f}")
         print("[timings] " + json.dumps(result.timings))
 
+    if not mesh.is_main():
+        return 0
     out_path = os.path.join(args.output_dir,
                             f"robustness_{args.model}_mode{args.mode}.json")
     with open(out_path, "w", encoding="utf-8") as fd:

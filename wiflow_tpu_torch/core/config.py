@@ -17,8 +17,9 @@ field but the
 ``attention_impl`` argument of ``models/fast.py::fast_forward`` (``"v2"``,
 ``"dual"`` or ``"v1"``).  The others (``attention_module_impl``,
 ``rng_impl``, ``scan_epochs``,
-``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none, as
-has ``MeshConfig`` until multi-GPU training is ported.
+``max_steps_per_call``, ``tcn_matmul``) are TPU matters and have none.
+``MeshConfig`` is the data-parallel layout (``parallel/mesh.py``): one
+process a rank, a CUDA device each.
 """
 
 from __future__ import annotations
@@ -211,10 +212,23 @@ class TrainConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshConfig:
+    """Data-parallel layout: ``num_devices`` ranks, each a process on a
+    device of its own (``parallel/mesh.py``).  None: every CUDA device
+    where a CLI starts the ranks, one process on the CPU; a trainer run
+    outside a process group takes None as its one process.  The JAX
+    field ``data_axis`` names a mesh axis, which a torch process group
+    does not have."""
+
+    num_devices: Optional[int] = None
+
+
+@dataclasses.dataclass(frozen=True)
 class Config:
     data: DataConfig = dataclasses.field(default_factory=DataConfig)
     model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
     train: TrainConfig = dataclasses.field(default_factory=TrainConfig)
+    mesh: MeshConfig = dataclasses.field(default_factory=MeshConfig)
     output_dir: str = "outputs"
 
 

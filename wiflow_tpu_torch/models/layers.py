@@ -19,6 +19,7 @@ from wiflow_tpu_torch.ops.norm import (
     MOMENTUM, batch_norm_eval, batch_norm_train, bn_vectors_from_sums,
     dropout, dropout2d, keep_mask, running_update,
 )
+from wiflow_tpu_torch.parallel.mesh import global_sums
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
@@ -62,9 +63,11 @@ class TorchBatchNorm(nn.Module):
 
     def from_sums(self, sums: torch.Tensor, count: int):
         """Train-mode BN for a fused stage: from the per-channel sum and
-        sum of squares ``sums [2, C]`` of ``count`` elements, move the
-        running statistics and return the fp32 apply vectors ``(m, a, b)``
-        of ``y = (x - m) * a + b``."""
+        sum of squares ``sums [2, C]`` of this rank's ``count`` elements,
+        all-reduced over the ranks (``parallel/mesh.py``), move the running
+        statistics and return the fp32 apply vectors ``(m, a, b)`` of
+        ``y = (x - m) * a + b``."""
+        sums, count = global_sums(sums, count)
         m, a, b, var = bn_vectors_from_sums(sums, count, self.weight,
                                             self.bias)
         with torch.no_grad():

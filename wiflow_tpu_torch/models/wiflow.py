@@ -55,6 +55,7 @@ from wiflow_tpu_torch.ops.kernels.axial_attention_train import (
 )
 from wiflow_tpu_torch.ops.kernels.stage_fused import join, stage
 from wiflow_tpu_torch.ops.norm import EPS
+from wiflow_tpu_torch.parallel.mesh import step_world
 
 
 class TCNLevel(nn.Module):
@@ -312,7 +313,8 @@ class AxialAttention(nn.Module):
     variance is the batch's, from the sums of the logits and their squares
     (no logits in memory); ``bn_similarity``'s running statistics move with
     the unbiased variance over ``count = n * L * L`` logits per group, and
-    its bias, which cancels, gets no gradient.
+    its bias, which cancels, gets no gradient.  Under data parallelism
+    the sums, and the count, are the global batch's.
     """
 
     def __init__(self, planes: int, groups: int, width: bool, *,
@@ -339,7 +341,7 @@ class AxialAttention(nn.Module):
             q, k, v = torch.split(qkv, self.planes, dim=-1)
             count = n * length * length
             mean, var = logits_moments_fused(q, k, g, count)
-            bns.track(mean.detach(), var.detach(), count)
+            bns.track(mean.detach(), var.detach(), count * step_world())
             scale = bns.weight.float() * torch.rsqrt(var + EPS)
             out = axial_core(q, k, v, scale)
         else:

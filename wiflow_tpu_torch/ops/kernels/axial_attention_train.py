@@ -40,6 +40,7 @@ from wiflow_tpu_torch.ops.kernels.build import (
     SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
     stream_ptr,
 )
+from wiflow_tpu_torch.parallel.mesh import global_sums
 
 _P, _I, _S = ctypes.c_void_p, ctypes.c_int, ctypes.c_size_t
 _TPU = "wiflow_tpu/ops/pallas/axial_attention_train.py"
@@ -518,5 +519,6 @@ def logits_sums(q: torch.Tensor, k: torch.Tensor,
 def logits_moments_fused(q: torch.Tensor, k: torch.Tensor, groups: int,
                          count: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Batch (mean, biased var) of the logits from :func:`logits_sums`;
-    ``count = N * L * L``."""
-    return _moments(logits_sums(q, k, groups), count)
+    ``count = N * L * L``, this rank's.  The sums are all-reduced over the
+    ranks (``parallel/mesh.py``), so the moments are the global batch's."""
+    return _moments(*global_sums(logits_sums(q, k, groups), count))

@@ -5,7 +5,10 @@ Counterpart of ``wiflow_tpu/ops/norm.py`` and of the ``bn_affine`` fold in
 ``wiflow_tpu/ops/pallas/axial_attention.py:85-88``.  Activations are
 channel-last.  Train-mode BN normalizes with the biased batch variance and
 moves the running statistics with the unbiased one:
-``running <- 0.9 * running + 0.1 * batch``.
+``running <- 0.9 * running + 0.1 * batch``.  Under data parallelism
+(``parallel/mesh.py``) the batch is the global one: the moments come from
+per-channel sums all-reduced over the ranks, and a dropout mask is drawn
+for the global batch, each rank keeping its rows.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
+
+from wiflow_tpu_torch.parallel.mesh import global_sums, local_rows, step_world
 
 EPS = 1e-5
 MOMENTUM = 0.1
@@ -64,16 +69,20 @@ def batch_norm_train(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
 
     Returns ``(y, new_running_mean, new_running_var)``; ``y`` is
     differentiable through the batch moments, the running statistics are
-    detached.  The moments are fp32, the variance ``E[x^2] - mean^2`` (the
-    JAX formula, kept for parity).
+    detached.  The moments are fp32, from the per-channel sums of ``x`` and
+    of its square over every rank (:func:`global_sums`), the variance
+    ``E[x^2] - mean^2`` (the JAX formula, kept for parity).
     """
     axes = tuple(range(x.ndim - 1))
     xf = x.float()
-    mean = xf.mean(dim=axes)
-    var = (xf * xf).mean(dim=axes) - mean * mean
+    sums, count = global_sums(
+        torch.stack([xf.sum(dim=axes), (xf * xf).sum(dim=axes)]),
+        x.numel() // x.shape[-1])
+    mom = sums / count
+    mean = mom[0]
+    var = mom[1] - mean * mean
     a = (gamma.float() * torch.rsqrt(var + EPS)).to(x.dtype)
     y = (x - mean.to(x.dtype)) * a + beta.to(x.dtype)
-    count = x.numel() // x.shape[-1]
     new_mean, new_var = running_update(running_mean, running_var,
                                        mean.detach(), var.detach(), count)
     return y, new_mean, new_var
@@ -112,7 +121,11 @@ def keep_mask(shape, rate: float, device: torch.device,
 
 def _keep_mask(shape, keep: float, device: torch.device,
                generator: torch.Generator) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=device) < keep
+    """Drawn for the global batch (``shape[0]`` rows a rank), this rank's
+    rows kept."""
+    full = (shape[0] * step_world(), *shape[1:])
+    return local_rows(torch.rand(full, generator=generator,
+                                 device=device) < keep)
 
 
 def dropout(x: torch.Tensor, rate: float,

@@ -20,6 +20,16 @@ the shuffle (a CPU generator), the model's ``dropout_generator`` and the
 augmentation draws.  The bundle therefore holds no generator state, and a
 run stopped after epoch k and resumed repeats the run that was never
 stopped, bit for bit on the CPU.
+
+Data parallelism (``Config.mesh``, ``parallel/mesh.py``): run inside a
+process group of ``MeshConfig.num_devices`` ranks (``parallel.mesh.spawn``
+starts them), every rank calls this with the same splits and seed; the
+index tables are the one-process run's, each rank steps on its rows of
+every global batch with the moments, gradients and metrics reduced over
+the ranks, so that every rank decides the plateau and the early stop
+alike.  Rank 0 alone prints and writes files; every rank reads the resume
+bundle.  The batch (and the eval batch, half of it) must split evenly
+over the ranks.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from wiflow_tpu_torch.core.checkpoint import (
 from wiflow_tpu_torch.core.config import Config
 from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
 from wiflow_tpu_torch.models.wiflow_mmfi import WiFlowMMFiModel
+from wiflow_tpu_torch.parallel.mesh import is_main, mesh_world
 from wiflow_tpu_torch.train.optim import (
     EarlyStopping, ReduceLROnPlateau, epoch_schedule_lr, get_learning_rate,
     set_learning_rate,
@@ -165,6 +176,9 @@ def train_pose_model(
                                    frozen_params=frozen_params)
     model = state.model
     dev = next(model.parameters()).device
+    world = mesh_world(cfg.mesh.num_devices, dev)
+    main = is_main()
+    verbose = verbose and main
     if init_state_dict:
         own = model.state_dict()
         unknown = sorted(set(init_state_dict) - set(own))
@@ -184,6 +198,10 @@ def train_pose_model(
     batch = min(tc.batch_size, n_train)
     eval_batch = max(1, batch // 2)
     accum = max(1, tc.grad_accum_steps)
+    if (batch // accum) % world or eval_batch % world:
+        raise ValueError(
+            f"batch {batch} (micro-batches of {batch // accum}, eval "
+            f"batches of {eval_batch}) does not split over {world} ranks")
     train_epoch, eval_epoch = make_step_fns(
         tc.loss, use_augmentation=tc.use_augmentation,
         grad_accum_steps=accum, connections=connections, pck_fn=pck_fn,
@@ -215,7 +233,7 @@ def train_pose_model(
 
     ckpt_path = (os.path.join(output_dir, "latest_checkpoint.pkl")
                  if output_dir else None)
-    if output_dir:
+    if output_dir and main:
         os.makedirs(output_dir, exist_ok=True)
     if ckpt_path and resume:
         ckpt = load_checkpoint(ckpt_path)
@@ -236,7 +254,7 @@ def train_pose_model(
     test_idx = make_batch_indices(n_test, eval_batch).to(dev)
     if verbose:
         print(f"[train] {n_train} samples, batch {batch} (accum {accum}), "
-              f"{dev}, {tc.num_epochs} epochs")
+              f"{dev}, {world} rank(s), {tc.num_epochs} epochs")
         if n_val == 0 and start_epoch < tc.num_epochs:
             print("[train] WARNING: empty val split — early stopping, "
                   "plateau LR and the best weights follow the TRAIN-epoch "
@@ -301,7 +319,7 @@ def train_pose_model(
         if stopper.update(monitored, epoch):
             best = {k: v.detach().clone()
                     for k, v in model.state_dict().items()}
-            if output_dir:
+            if output_dir and main:
                 t_save = time.time()
                 tree = export_tree(best) if export_tree else None
                 save_best_model(output_dir, best, export_cfg, tree=tree)
@@ -311,7 +329,7 @@ def train_pose_model(
                       + (" -> saved best_pose_model.*" if output_dir else ""))
 
         epochs_run = epoch + 1
-        if ckpt_path and tc.checkpoint_every_epoch:
+        if ckpt_path and tc.checkpoint_every_epoch and main:
             t_save = time.time()
             save_checkpoint(ckpt_path, {
                 "model": model.state_dict(),

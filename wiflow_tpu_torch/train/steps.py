@@ -35,6 +35,10 @@ from wiflow_tpu_torch.data.augment import augment_batch
 from wiflow_tpu_torch.losses.pose_loss import pose_loss
 from wiflow_tpu_torch.metrics.metrics import mpjpe, pck_correct_fractions
 from wiflow_tpu_torch.models.wiflow import WiFlowPoseModel
+from wiflow_tpu_torch.parallel.mesh import (
+    average_gradients, data_parallel, gather_batches, local_rows,
+    mean_over_ranks,
+)
 from wiflow_tpu_torch.train.optim import apply_gradients, make_optimizer
 
 TEST_THRESHOLDS = (0.1, 0.2, 0.3, 0.4, 0.5)
@@ -139,7 +143,9 @@ def train_step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor,
     where given, forward in train
     mode, loss (the pose loss of ``loss_cfg`` unless ``hooks`` says
     otherwise), backward, clip, optimizer.  Updates ``state`` in place;
-    returns the step's metrics as device tensors."""
+    returns the step's metrics (this rank's) as device tensors.  In a
+    process group the step is data-parallel (``parallel/mesh.py``):
+    ``xb``, ``yb`` are the global batch."""
     hooks = hooks or make_hooks(loss_cfg)
     if augment is not None:
         xb = augment_batch(xb, augment)
@@ -149,15 +155,18 @@ def train_step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor,
     a = max(1, grad_accum_steps)
     mb = xb.shape[0] // a
     ms = []
-    for i in range(a):
-        x_i, y_i = xb[i * mb:(i + 1) * mb], yb[i * mb:(i + 1) * mb]
-        out = model(x_i)
-        loss, parts = hooks.loss_fn(out, y_i)
-        loss.backward()
-        ms.append(_batch_metrics(hooks, loss, parts, out, y_i))
+    with data_parallel():
+        for i in range(a):
+            x_i = local_rows(xb[i * mb:(i + 1) * mb])
+            y_i = local_rows(yb[i * mb:(i + 1) * mb])
+            out = model(x_i)
+            loss, parts = hooks.loss_fn(out, y_i)
+            loss.backward()
+            ms.append(_batch_metrics(hooks, loss, parts, out, y_i))
     if a > 1:
         torch._foreach_div_([p.grad for p in model.parameters()
                              if p.grad is not None], a)
+    average_gradients(list(model.parameters()))
     metrics = _mean(ms)
     metrics["grad_norm"] = apply_gradients(opt, state.grad_clip_norm,
                                            state.frozen)
@@ -171,12 +180,14 @@ def eval_step(model: nn.Module, xb: torch.Tensor, yb: torch.Tensor,
               ) -> Tuple[Metrics, Tuple[torch.Tensor, torch.Tensor]]:
     """Eval-mode forward, loss, MPJPE and the PCK curve at
     ``TEST_THRESHOLDS``; returns the metrics and the (pred, target)
-    keypoints."""
+    keypoints, of this rank's rows of ``xb``, ``yb``."""
     hooks = hooks or make_hooks(loss_cfg)
     training = model.training
     model.eval()
     try:
-        out = model(xb)
+        with data_parallel():
+            xb, yb = local_rows(xb), local_rows(yb)
+            out = model(xb)
     finally:
         model.train(training)
     total, parts = hooks.loss_fn(out, yb)
@@ -193,25 +204,29 @@ def train_epoch(state: TrainState, x: torch.Tensor, y: torch.Tensor,
                 grad_accum_steps: int = 1, *, hooks: Optional[Hooks] = None,
                 augment: Optional[torch.Generator] = None) -> Metrics:
     """One step per row of ``batch_idx`` (on ``x``'s device); the mean of
-    the steps' metrics."""
-    return _mean([train_step(state, x[idx], y[idx], loss_cfg,
+    the steps' metrics over the steps and the ranks."""
+    return mean_over_ranks(_mean([train_step(state, x[idx], y[idx], loss_cfg,
                              grad_accum_steps, hooks=hooks, augment=augment)
-                  for idx in batch_idx])
+                  for idx in batch_idx]))
 
 
 def eval_epoch(model: nn.Module, x: torch.Tensor, y: torch.Tensor,
                batch_idx: torch.Tensor, loss_cfg: LossConfig = LossConfig(),
                *, hooks: Optional[Hooks] = None
                ) -> Tuple[Metrics, Tuple[torch.Tensor, torch.Tensor]]:
-    """Eval over the rows of ``batch_idx``: mean metrics, and the
-    predictions and targets of every row, concatenated."""
+    """Eval over the rows of ``batch_idx``: mean metrics (over the batches
+    and the ranks), and the predictions and targets of every row,
+    concatenated in the table's order."""
     ms, preds, targets = [], [], []
     for idx in batch_idx:
         m, (p, t) = eval_step(model, x[idx], y[idx], loss_cfg, hooks=hooks)
         ms.append(m)
         preds.append(p)
         targets.append(t)
-    return _mean(ms), (torch.cat(preds), torch.cat(targets))
+    nb = len(batch_idx)
+    return mean_over_ranks(_mean(ms)), (
+        gather_batches(torch.cat(preds), nb),
+        gather_batches(torch.cat(targets), nb))
 
 
 def make_step_fns(loss_cfg: LossConfig = LossConfig(),
