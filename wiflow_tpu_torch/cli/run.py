@@ -10,6 +10,9 @@ card) or ``cpu``.  It trains (resuming from ``latest_checkpoint.pkl`` in
 (``parallel/mesh.py``), which the command starts itself: one a CUDA
 device (more than there are raises), or N gloo processes with
 ``--device cpu``; ``auto`` is every CUDA device (one process on the CPU).
+``--profile_dir`` writes a ``torch.profiler`` trace of the training, with
+the program's own spans (``utils/trace.py``, on for the run) on the same
+timeline, to ``trace.json`` there.
 
 Usage:
   python -m wiflow_tpu_torch.cli.run --epochs 50 --batch_size 64 \\
@@ -40,6 +43,7 @@ from wiflow_tpu_torch.core.config import MeshConfig
 from wiflow_tpu_torch.eval.artifacts import write_all_artifacts
 from wiflow_tpu_torch.parallel import mesh
 from wiflow_tpu_torch.train.loop import train_pose_model
+from wiflow_tpu_torch.utils import trace
 
 
 def set_seed(seed: int = 42) -> None:
@@ -81,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no_resume", action="store_true")
     p.add_argument("--grad_accum_steps", type=int, default=1)
     p.add_argument("--profile_dir", type=str, default=None,
-                   help="write a torch.profiler trace of the run here "
-                        "(trace.json, for chrome://tracing or Perfetto)")
+                   help="write a torch.profiler trace of the run, with "
+                        "the program's spans, here (trace.json, for "
+                        "chrome://tracing or Perfetto)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly: fail at the op "
                         "whose backward produced a NaN")
@@ -114,10 +119,37 @@ def _profiled(profile_dir):
     acts = [torch.profiler.ProfilerActivity.CPU]
     if torch.cuda.is_available():
         acts.append(torch.profiler.ProfilerActivity.CUDA)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield
+    at = trace.anchor()
+    trace.enable()
+    try:
+        with torch.profiler.profile(activities=acts) as prof:
+            yield
+    finally:
+        trace.disable()
+    got = trace.collect()
     os.makedirs(profile_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(profile_dir, "trace.json"))
+    path = os.path.join(profile_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    _merge_spans(path, got, at)
+
+
+def _merge_spans(path: str, got: trace.Collected, at) -> None:
+    """The program's spans into the profiler's Chrome trace at ``path``,
+    mapped onto its clock by the anchor ``at`` (a thread of their own,
+    "program spans"), and its counters under ``programCounters``."""
+    with open(path, encoding="utf-8") as f:
+        doc = json.load(f)
+    if isinstance(doc, list):
+        doc = {"traceEvents": doc}
+    pid, tid = os.getpid(), 0
+    doc["traceEvents"].append({"ph": "M", "name": "thread_name", "pid": pid,
+                               "tid": tid,
+                               "args": {"name": "program spans"}})
+    doc["traceEvents"].extend(trace.chrome_events(
+        got.spans, at, int(doc.get("baseTimeNanoseconds", 0)), pid, tid))
+    doc["programCounters"] = got.counts
+    with open(path, "w", encoding="utf-8") as f:
+        json.dump(doc, f)
 
 
 def main(argv=None) -> int:

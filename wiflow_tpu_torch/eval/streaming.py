@@ -5,6 +5,12 @@ yields ``[T - 19, 15, 2]`` poses by sliding the 20-frame window.  The
 windows are a strided view of the stream on the device, processed in
 fixed-size batches; the tail is padded to the batch size and sliced off,
 so every call of ``apply_fn`` sees the same shape.
+
+Spans (``utils/trace.py``): ``stream.request`` around a call of ``infer``,
+``stream.windows`` (the move to the device, the unfold, the padding) and
+``stream.gather`` (the concatenation and the trim); counters
+``stream.rows`` (rows passed to ``apply_fn``) and ``stream.pad_rows``
+(those that are padding).
 """
 
 from __future__ import annotations
@@ -16,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from wiflow_tpu_torch.core.config import resolve_device
+from wiflow_tpu_torch.utils import trace
 
 
 def sliding_windows(stream: torch.Tensor, window: int,
@@ -37,14 +44,20 @@ def make_stream_infer(apply_fn: Callable[[torch.Tensor], torch.Tensor],
 
     @torch.no_grad()
     def infer(stream) -> torch.Tensor:
-        if not torch.is_tensor(stream):
-            stream = torch.from_numpy(np.asarray(stream, np.float32))
-        stream = stream.to(device=dev, dtype=torch.float32)
-        win = sliding_windows(stream, window, stride)
-        n = win.shape[0]
-        win = F.pad(win, (0, 0, 0, 0, 0, (-n) % batch))
-        poses = [apply_fn(win[i:i + batch])
-                 for i in range(0, win.shape[0], batch)]
-        return torch.cat(poses)[:n]
+        with trace.span("stream.request"):
+            with trace.span("stream.windows"):
+                if not torch.is_tensor(stream):
+                    stream = torch.from_numpy(np.asarray(stream, np.float32))
+                stream = stream.to(device=dev, dtype=torch.float32)
+                win = sliding_windows(stream, window, stride)
+                n = win.shape[0]
+                pad = (-n) % batch
+                win = F.pad(win, (0, 0, 0, 0, 0, pad))
+            trace.count("stream.rows", n + pad)
+            trace.count("stream.pad_rows", pad)
+            poses = [apply_fn(win[i:i + batch])
+                     for i in range(0, win.shape[0], batch)]
+            with trace.span("stream.gather"):
+                return torch.cat(poses)[:n]
 
     return infer

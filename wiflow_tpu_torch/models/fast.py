@@ -25,6 +25,12 @@ accumulation inside the kernels, and returns fp32.
 the same three kernels at that model's sizes, a folded 1x1 projection
 between the TCN and the conv stack, and a folded 1x1 head on the last time
 step, both in stock torch ops.
+
+Spans (``utils/trace.py``): ``serve.forward`` around a call of either
+forward, and inside it ``serve.prep`` (the cast and the transposes),
+``serve.tcn``, ``serve.project`` (MM-Fi's projection), ``serve.conv_stack``,
+``serve.attention`` (each op's kernel wrapper, or its stock lowering) and
+``serve.decode`` (the decoder or the head).
 """
 
 from __future__ import annotations
@@ -53,6 +59,7 @@ from wiflow_tpu_torch.ops.kernels.tcn_level import (
     TcnLevelWeights, fused_tcn_eval, pack_tcn_levels,
 )
 from wiflow_tpu_torch.ops.norm import folded_bn
+from wiflow_tpu_torch.utils import trace
 
 
 class StockTcnLevel(NamedTuple):
@@ -194,18 +201,10 @@ def _conv_stack(x: torch.Tensor, conv) -> torch.Tensor:
     """``[B, T, C0]`` through the conv-stack kernel (one launch) to the
     attention's input ``[B, H, T, C]``, H the conv stack's last width."""
     b, t = x.shape[:2]
-    y = fused_conv_stack_eval(x.reshape(b * t, x.shape[-1]), conv)
+    with trace.span("serve.conv_stack"):
+        y = fused_conv_stack_eval(x.reshape(b * t, x.shape[-1]), conv)
     # [B*T, C, W] -> [B, H=W, T, C]
     return y.reshape(b, t, *y.shape[1:]).permute(0, 3, 1, 2).contiguous()
-
-
-def _encode(x: torch.Tensor, tcn, conv, mid=None) -> torch.Tensor:
-    """``[B, T, C0]`` through the TCN kernel (one launch a level), ``mid``
-    and the conv-stack kernel to the attention's input ``[B, H, T, C]``."""
-    x = fused_tcn_eval(x, tcn)
-    if mid is not None:
-        x = mid(x)
-    return _conv_stack(x, conv)
 
 
 def _silu(x: torch.Tensor) -> torch.Tensor:
@@ -280,21 +279,28 @@ def fast_forward(packed: FastWeights, x: torch.Tensor,
             f"fast_forward expects [B, {cfg.num_subcarriers}, "
             f"{cfg.window_size}] CSI windows, got {tuple(x.shape)}")
     attend = _ATTENTION_IMPLS.get(attention_impl, dual_axial_attention_eval_v1)
-    x = x.to(device=packed.device, dtype=cfg.dtype)
-    x = x.transpose(1, 2).contiguous()                    # [B, T, C]
-    if fuse_tcn:
-        x = fused_tcn_eval(x, packed.tcn)
-    else:
-        for lv in packed.stock_tcn:
-            x = _stock_tcn_level(lv, x)
-    if fuse_conv_stack:
-        x = _conv_stack(x, packed.conv)
-    else:
-        x = x[..., None]                                  # [B, T, 240, 1]
-        for blk in packed.stock_conv:
-            x = _stock_conv_block(blk, x)
-        x = x.transpose(1, 2).contiguous()                # [B, 15, T, 64]
-    return decode(packed, attend(x, packed.attention))
+    with trace.span("serve.forward"):
+        with trace.span("serve.prep"):
+            x = x.to(device=packed.device, dtype=cfg.dtype)
+            x = x.transpose(1, 2).contiguous()            # [B, T, C]
+        with trace.span("serve.tcn"):
+            if fuse_tcn:
+                x = fused_tcn_eval(x, packed.tcn)
+            else:
+                for lv in packed.stock_tcn:
+                    x = _stock_tcn_level(lv, x)
+        if fuse_conv_stack:
+            x = _conv_stack(x, packed.conv)
+        else:
+            with trace.span("serve.conv_stack"):
+                x = x[..., None]                          # [B, T, 240, 1]
+                for blk in packed.stock_conv:
+                    x = _stock_conv_block(blk, x)
+                x = x.transpose(1, 2).contiguous()        # [B, 15, T, 64]
+        with trace.span("serve.attention"):
+            x = attend(x, packed.attention)
+        with trace.span("serve.decode"):
+            return decode(packed, x)
 
 
 def decode(packed: FastWeights, x: torch.Tensor) -> torch.Tensor:
@@ -359,12 +365,20 @@ def fast_forward_mmfi(packed: FastMMFiWeights, x: torch.Tensor) -> torch.Tensor:
             f"{cfg.num_subcarriers}, {cfg.window_size}] MM-Fi CSI, got "
             f"{tuple(x.shape)}")
     b = x.shape[0]
-    x = x.to(device=packed.device, dtype=cfg.dtype)
-    x = x.reshape(b, cfg.input_channels, cfg.window_size).transpose(1, 2)
-    wproj, bproj = packed.proj
-    x = _encode(x.contiguous(), packed.tcn, packed.conv,
-                mid=lambda y: F.silu(F.linear(y, wproj, bproj)))
-    x = dual_axial_attention_eval(x, packed.attention)   # [B, 17, 10, 64]
-    w1, b1, w2, b2 = packed.head
-    x = F.silu(conv1x1_2d(x[:, :, -1:, :], w1, b1))      # last time step
-    return conv1x1_2d(x, w2, b2)[:, :, 0, :].float()
+    with trace.span("serve.forward"):
+        with trace.span("serve.prep"):
+            x = x.to(device=packed.device, dtype=cfg.dtype)
+            x = x.reshape(b, cfg.input_channels, cfg.window_size)
+            x = x.transpose(1, 2).contiguous()            # [B, T, C]
+        with trace.span("serve.tcn"):
+            x = fused_tcn_eval(x, packed.tcn)
+        with trace.span("serve.project"):
+            wproj, bproj = packed.proj
+            x = F.silu(F.linear(x, wproj, bproj))
+        x = _conv_stack(x, packed.conv)
+        with trace.span("serve.attention"):
+            x = dual_axial_attention_eval(x, packed.attention)  # [B,17,10,64]
+        with trace.span("serve.decode"):
+            w1, b1, w2, b2 = packed.head
+            x = F.silu(conv1x1_2d(x[:, :, -1:, :], w1, b1))  # last time step
+            return conv1x1_2d(x, w2, b2)[:, :, 0, :].float()

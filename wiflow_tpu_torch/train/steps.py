@@ -18,6 +18,13 @@ Semantics kept from the reference:
     bone loss), ``pck_fn``, ``mpe_fn``, ``loss_fn`` and ``to_keypoints``,
     with the same defaults; augmentation (``data/augment.py``) of the
     whole batch before the step when the caller passes a generator.
+
+Spans (``utils/trace.py``): ``train.step`` around a call of
+:func:`train_step`, and inside it, for each micro-batch,
+``train.forward``, ``train.loss`` (the loss and the batch's metrics) and
+``train.backward``, then ``train.optimizer`` (the division of summed
+micro-batch gradients, their average over ranks, the zero-fill, the clip
+and the optimizer step); counter ``train.steps``.
 """
 
 from __future__ import annotations
@@ -40,6 +47,7 @@ from wiflow_tpu_torch.parallel.mesh import (
     mean_over_ranks,
 )
 from wiflow_tpu_torch.train.optim import apply_gradients, make_optimizer
+from wiflow_tpu_torch.utils import trace
 
 TEST_THRESHOLDS = (0.1, 0.2, 0.3, 0.4, 0.5)
 Metrics = Dict[str, torch.Tensor]
@@ -146,30 +154,36 @@ def train_step(state: TrainState, xb: torch.Tensor, yb: torch.Tensor,
     returns the step's metrics (this rank's) as device tensors.  In a
     process group the step is data-parallel (``parallel/mesh.py``):
     ``xb``, ``yb`` are the global batch."""
-    hooks = hooks or make_hooks(loss_cfg)
-    if augment is not None:
-        xb = augment_batch(xb, augment)
-    model, opt = state.model, state.optimizer
-    model.train()
-    opt.zero_grad(set_to_none=True)
-    a = max(1, grad_accum_steps)
-    mb = xb.shape[0] // a
-    ms = []
-    with data_parallel():
-        for i in range(a):
-            x_i = local_rows(xb[i * mb:(i + 1) * mb])
-            y_i = local_rows(yb[i * mb:(i + 1) * mb])
-            out = model(x_i)
-            loss, parts = hooks.loss_fn(out, y_i)
-            loss.backward()
-            ms.append(_batch_metrics(hooks, loss, parts, out, y_i))
-    if a > 1:
-        torch._foreach_div_([p.grad for p in model.parameters()
-                             if p.grad is not None], a)
-    average_gradients(list(model.parameters()))
-    metrics = _mean(ms)
-    metrics["grad_norm"] = apply_gradients(opt, state.grad_clip_norm,
-                                           state.frozen)
+    with trace.span("train.step"):
+        hooks = hooks or make_hooks(loss_cfg)
+        if augment is not None:
+            xb = augment_batch(xb, augment)
+        model, opt = state.model, state.optimizer
+        model.train()
+        opt.zero_grad(set_to_none=True)
+        a = max(1, grad_accum_steps)
+        mb = xb.shape[0] // a
+        ms = []
+        with data_parallel():
+            for i in range(a):
+                x_i = local_rows(xb[i * mb:(i + 1) * mb])
+                y_i = local_rows(yb[i * mb:(i + 1) * mb])
+                with trace.span("train.forward"):
+                    out = model(x_i)
+                with trace.span("train.loss"):
+                    loss, parts = hooks.loss_fn(out, y_i)
+                    ms.append(_batch_metrics(hooks, loss, parts, out, y_i))
+                with trace.span("train.backward"):
+                    loss.backward()
+        metrics = _mean(ms)
+        with trace.span("train.optimizer"):
+            if a > 1:
+                torch._foreach_div_([p.grad for p in model.parameters()
+                                     if p.grad is not None], a)
+            average_gradients(list(model.parameters()))
+            metrics["grad_norm"] = apply_gradients(opt, state.grad_clip_norm,
+                                                   state.frozen)
+        trace.count("train.steps")
     return metrics
 
 
