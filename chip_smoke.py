@@ -17,6 +17,8 @@ Phases (any failure exits nonzero; nothing is caught):
    ``axial_attention_v1`` and ``logits_sums`` must list a bf16 and an fp32
    kernel, the bf16 ones with 126, 252, 0 and 0 ``HMMA`` (one projection on
    the tensor cores, two, none, none), the fp32 ones with none;
+   ``tcn_level``'s bf16 kernels (one a wgmma width) must hold ``HGMMA``,
+   its fp32 kernel none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -365,6 +367,9 @@ SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
                   "logits_sums")
 SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252,
                 "axial_attention_v1": 0, "logits_sums": 0}
+# Libraries whose bf16 kernels run their products on wgmma: each must hold
+# HGMMA, the fp32 ones none (the TCN level: one bf16 kernel a wgmma width).
+SASS_WGMMA = ("tcn_level",)
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
@@ -2989,7 +2994,14 @@ def build_kernels(only=None):
                         f"{lib} {fn}: HMMA {counts['HMMA']}; the bf16 "
                         f"kernels must project on the tensor cores with "
                         f"{SASS_CHECKED[lib]}, the fp32 ones on CUDA cores")
-            if lib in SASS_CHECKED and kinds != {"bf16", "fp32"}:
+                if (lib in SASS_WGMMA and "_kernel" in fn
+                        and (counts["HGMMA"] > 0) != bf16):
+                    raise AssertionError(
+                        f"{lib} {fn}: HGMMA {counts['HGMMA']}; the bf16 "
+                        f"kernels must run their products on wgmma, the "
+                        f"fp32 ones on CUDA cores")
+            if lib in (*SASS_CHECKED, *SASS_WGMMA) and kinds != {"bf16",
+                                                                  "fp32"}:
                 raise AssertionError(
                     f"{lib}: cuobjdump listed kernels of {sorted(kinds)}, "
                     f"not a bf16 and an fp32 one, so the HMMA check tested "

@@ -15,11 +15,22 @@ on a CPU tensor it runs :func:`tcn_level_plain`, the same arithmetic in
 stock torch ops.  Unlike the TPU packer, the grouped taps stay grouped
 (``[3, G, ci, co]``): the block-diagonal form only filled the TPU's
 128-wide matrix unit.  :func:`level_weights` packs a level once more for
-the kernel (``kw``): each grouped conv as one ``[3 cgp, cg]`` matrix a group
-(taps, then the group's channels padded to ``cgp``, a multiple of 8), and
-the pointwise products P1, P2 and D as ``[K, C_out]`` matrices, K padded to
-16 and C_out to 8; bf16 in the tensor cores' B-fragment order
-(``fragments.py``), fp32 as they are.  :func:`tcn_plan` sizes the launch.
+the kernel (``kw``), by the path :func:`tcn_plan` takes for its dtype:
+
+- bf16, the ``wgmma`` path: each grouped conv as one ``[16 ks, cgp]`` matrix
+  a group (cgp the group's outputs padded to 8), its rows the taps x the
+  8-channel chunks of the dense layout that the group's channels touch
+  (zero on the neighbours' channels), in the tensor cores' B-fragment
+  order; P1, P2 and D as ``[K, C_out]`` matrices, K padded to 16 and C_out
+  to 24 NT (three warpgroups of 8 NT columns, NT a multiple of 4), in
+  wgmma's B order (``fragments.py``), one 16-deep k-step after another;
+- fp32, the ``fma`` path on CUDA cores: each grouped conv as one ``[3 cgp,
+  cg]`` matrix a group (taps, then the group's channels padded to ``cgp``,
+  a multiple of 8), P1, P2 and D as ``[K, C_out]`` matrices, K padded to
+  16 and C_out to 8, as they are.
+
+A launch on the wgmma path counts ``serve.tcn_wgmma_levels``
+(``utils/trace.py``, while tracing is on) and :data:`wgmma_levels`.
 """
 
 from __future__ import annotations
@@ -35,19 +46,27 @@ from wiflow_tpu_torch.ops.kernels.build import (
     SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
     stream_ptr,
 )
-from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
+from wiflow_tpu_torch.ops.kernels.fragments import to_fragments, to_wgmma_b
 from wiflow_tpu_torch.ops.norm import folded_bn
+from wiflow_tpu_torch.utils import trace
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("tcn_level", "tcn_level_forward",
                     [_I] + [_P] * 10,
                     replaces="wiflow_tpu/ops/pallas/tcn_level.py:113")
-_WARP_COLS = 8                # the kernel's 16 warps: 2 along the rows, 8 along N
+_WARP_COLS = 8                # fp32: 16 warps, 2 along the rows, 8 along N
 _MAX_NTW = 9                  # n-tiles of a warp: N <= 576
 _MAX_GROUP = 32               # channels of a group (4 n-tiles)
-_STAGES = 4                   # the weight ring (bf16)
 _ZERO_BYTES = 32
 _ROWS = {torch.bfloat16: 64, torch.float32: 32}   # rows of a tile
+_WGS = 3                      # bf16: consumer warpgroups, each 8 NT columns
+_NT_STEP = 4                  # NT a multiple of it (one kernel each)
+_MAX_STAGES = 8               # bf16: slots of the weight ring
+_ALIGN = 1024                 # bf16: the swizzle atoms' alignment (slack)
+
+# Levels launched on the wgmma path (bf16), a plain integer beside
+# ``KERNEL.launches``; callers may reset it to 0.
+wgmma_levels = 0
 
 
 class TcnLevelWeights(NamedTuple):
@@ -121,29 +140,43 @@ def _odd_words(width: int) -> int:
     return width if width // 8 % 2 else width + 8
 
 
+def _window_chunks(cg: int, groups: int) -> int:
+    """The 8-channel chunks of the dense layout that the widest group of
+    ``cg`` channels touches: the bf16 grouped convs' window a tap."""
+    return max((g * cg + cg - 1) // 8 - g * cg // 8 + 1 for g in range(groups))
+
+
 class _WeightLayout(NamedTuple):
     ks: Tuple[int, int, int, int, int]     # k-steps: G1, G2, P1, P2, D
     offs: Tuple[int, int, int, int, int]   # first element of each in kw
     total: int
-    ntiles: int                            # 8-column tiles of C_out
+    ncols: int        # columns of P1, P2, D: C_out padded to 8 (fp32) or
+                      # to 24 NT, NT a multiple of 4 (bf16)
+    window: Tuple[int, int]   # bf16: chunks of a group's window, in / out
 
 
 @functools.lru_cache(maxsize=None)
-def _weight_layout(cin: int, cout: int, groups: int,
-                   has_d: bool) -> _WeightLayout:
+def _weight_layout(cin: int, cout: int, groups: int, has_d: bool,
+                   wgmma: bool = False) -> _WeightLayout:
     cgi, cgo = cin // groups, cout // groups
     ntiles = -(-cout // 8)
-    ks_g1, ks_g2 = -(-3 * _cgp(cgi) // 16), -(-3 * _cgp(cgo) // 16)
+    if wgmma:
+        window = (_window_chunks(cgi, groups), _window_chunks(cgo, groups))
+        ks_g1, ks_g2 = -(-3 * window[0] // 2), -(-3 * window[1] // 2)
+        ncols = 8 * _NT_STEP * _WGS * -(-ntiles // (_NT_STEP * _WGS))
+    else:
+        window = (0, 0)
+        ks_g1, ks_g2 = -(-3 * _cgp(cgi) // 16), -(-3 * _cgp(cgo) // 16)
+        ncols = 8 * ntiles
     ks_p1, ks_p2 = -(-cin // 16), -(-cout // 16)
     ks = (ks_g1, ks_g2, ks_p1, ks_p2, ks_p1 if has_d else 0)
     sizes = (groups * ks_g1 * 16 * _cgp(cgi), groups * ks_g2 * 16 * _cgp(cgo),
-             ks_p1 * 16 * ntiles * 8, ks_p2 * 16 * ntiles * 8,
-             ks[4] * 16 * ntiles * 8)
+             ks_p1 * 16 * ncols, ks_p2 * 16 * ncols, ks[4] * 16 * ncols)
     offs, at = [], 0
     for n in sizes:
         offs.append(at)
         at += n
-    return _WeightLayout(ks, tuple(offs), at, ntiles)
+    return _WeightLayout(ks, tuple(offs), at, ncols, window)
 
 
 def _group_matrices(w: torch.Tensor, ks: int) -> torch.Tensor:
@@ -157,23 +190,44 @@ def _group_matrices(w: torch.Tensor, ks: int) -> torch.Tensor:
     return F.pad(m, (0, 0, 0, 16 * ks - 3 * cp))
 
 
-def _dense_matrix(w: torch.Tensor, ks: int, ntiles: int) -> torch.Tensor:
+def _window_matrices(w: torch.Tensor, ks: int, nch: int) -> torch.Tensor:
+    """Grouped taps ``[3, G, cg, cg]`` -> ``[G, 16 ks, cgp]`` over the dense
+    layout: row ``j 8 nch + 8 k + e`` is channel ``8 (c0 + k) + e`` of tap
+    j, ``c0 = g cg // 8`` the group's first chunk, zero where that channel
+    is not the group's."""
+    _, g, ci, co = w.shape
+    m = torch.zeros(g, 16 * ks, _cgp(co))
+    for i in range(g):
+        o = i * ci - (i * ci // 8) * 8
+        for j in range(3):
+            r = j * 8 * nch + o
+            m[i, r:r + ci, :co] = w[j, i].float().cpu()
+    return m
+
+
+def _dense_matrix(w: torch.Tensor, ks: int, ncols: int) -> torch.Tensor:
     k, n = w.shape
-    return F.pad(w.float().cpu(), (0, 8 * ntiles - n, 0, 16 * ks - k))
+    return F.pad(w.float().cpu(), (0, ncols - n, 0, 16 * ks - k))
 
 
 def level_matrices(lv: TcnLevelWeights) -> List[torch.Tensor]:
-    """The kernel's five weight matrices of a level in fp32: G1 ``[G, 16
-    ks, cgp]``, G2, then P1, P2 and D ``[16 ks, 8 ntiles]`` (D empty for the
-    identity residual)."""
+    """The kernel's five weight matrices of a level in fp32, by the path of
+    its dtype: G1 ``[G, 16 ks, cgp]``, G2, then P1, P2 and D ``[16 ks,
+    ncols]`` (D empty for the identity residual)."""
     cin, cout = lv.p1w.shape
-    lay = _weight_layout(cin, cout, lv.g1w.shape[1], lv.dw is not None)
-    mats = [_group_matrices(lv.g1w, lay.ks[0]),
-            _group_matrices(lv.g2w, lay.ks[1]),
-            _dense_matrix(lv.p1w, lay.ks[2], lay.ntiles),
-            _dense_matrix(lv.p2w, lay.ks[3], lay.ntiles)]
-    mats.append(_dense_matrix(lv.dw, lay.ks[4], lay.ntiles)
-                if lv.dw is not None else torch.zeros(0, 8 * lay.ntiles))
+    wgmma = lv.p1w.dtype == torch.bfloat16
+    lay = _weight_layout(cin, cout, lv.g1w.shape[1], lv.dw is not None,
+                         wgmma)
+    if wgmma:
+        mats = [_window_matrices(lv.g1w, lay.ks[0], lay.window[0]),
+                _window_matrices(lv.g2w, lay.ks[1], lay.window[1])]
+    else:
+        mats = [_group_matrices(lv.g1w, lay.ks[0]),
+                _group_matrices(lv.g2w, lay.ks[1])]
+    mats += [_dense_matrix(lv.p1w, lay.ks[2], lay.ncols),
+             _dense_matrix(lv.p2w, lay.ks[3], lay.ncols)]
+    mats.append(_dense_matrix(lv.dw, lay.ks[4], lay.ncols)
+                if lv.dw is not None else torch.zeros(0, lay.ncols))
     return mats
 
 
@@ -185,7 +239,7 @@ def level_weights(lv: TcnLevelWeights) -> TcnLevelWeights:
     for m in level_matrices(lv):
         if dt == torch.bfloat16 and m.numel():
             m = (torch.cat([to_fragments(g) for g in m]) if m.ndim == 3
-                 else to_fragments(m))
+                 else to_wgmma_b(m))
         parts.append(m.reshape(-1))
     return lv._replace(kw=torch.cat(parts).to(device=dev, dtype=dt))
 
@@ -224,9 +278,11 @@ class TcnPlan(NamedTuple):
     grid: int               # blocks: one an SM, at most one a tile
     blocks_per_sm: int
     smem: int               # bytes of shared memory a block
-    stages: int             # weight ring (bf16), 0 in fp32
-    ntw: int                # n-tiles of a warp in the pointwise products
-    dims: Tuple[int, ...]   # the C side's 28 ints
+    stages: int             # slots of the weight ring (bf16), 0 in fp32
+    ntw: int                # n-tiles of a warpgroup's wgmma (bf16), of a
+                            # warp's products (fp32)
+    dims: Tuple[int, ...]   # the C side's ints: 24 bf16, 28 fp32
+    path: str               # "wgmma" (bf16) or "fma" (fp32, CUDA cores)
 
 
 @functools.lru_cache(maxsize=None)
@@ -236,11 +292,18 @@ def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
     """The launch of one level on ``[batch, steps, cin]``.  Pure: the CPU
     tests hold it.
 
-    Two shared-memory buffers of a tile of rows: buf0 holds x
+    bf16, the ``wgmma`` path: two buffers of 64 rows, channel-last in
+    128-byte swizzled atoms of 64 channels (x, then h2, then x again; h1,
+    then h3), a ring of 2-8 weight k-steps (as many as fit), the biases,
+    a row of zeros, two 8-byte mbarriers a slot, and 1024 bytes of slack
+    to align the atoms.  C_out is split over three warpgroups of 8 NT
+    columns each, NT a multiple of 4 (one instantiation of the kernel
+    each).
+
+    fp32, the ``fma`` path: two buffers of 32 rows: buf0 holds x
     group-padded, then h2 group-padded, then x dense; buf1 h1, then h3,
-    dense.  Then a row of zeros, each channel's group-padded column (2
-    bytes a channel, in and out) and, in bf16, a ring of 4 weight k-steps
-    with two 8-byte mbarriers a slot."""
+    dense.  Then a row of zeros and each channel's group-padded column (2
+    bytes a channel, in and out)."""
     if dtype not in _ROWS:
         raise TypeError(f"tcn_level takes float32 or bfloat16, got {dtype}")
     if cin % groups or cout % groups:
@@ -248,8 +311,8 @@ def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
     if max(cin, cout) // groups > _MAX_GROUP:
         raise ValueError(f"the kernel's grouped convs take at most "
                          f"{_MAX_GROUP} channels a group")
-    lay = _weight_layout(cin, cout, groups, has_d)
-    if lay.ntiles > _WARP_COLS * _MAX_NTW:
+    ntiles = -(-cout // 8)
+    if ntiles > _WARP_COLS * _MAX_NTW:
         raise ValueError(f"C_out = {cout}: the kernel takes at most "
                          f"{8 * _WARP_COLS * _MAX_NTW} output channels")
     rows = _ROWS[dtype]
@@ -257,28 +320,42 @@ def tcn_plan(batch: int, steps: int, cin: int, cout: int, groups: int,
     if samples < 1:
         raise ValueError(f"{steps} time steps do not fit a tile of {rows} "
                          f"rows")
-    esize = 2 if dtype == torch.bfloat16 else 4
-    cgp_in, cgp_out = _cgp(cin // groups), _cgp(cout // groups)
-    ldg_in, ldg_out = _odd_words(groups * cgp_in), _odd_words(groups * cgp_out)
-    ldd_in = _odd_words(-(-cin // 16) * 16)
-    ldd_out = _odd_words(-(-cout // 16) * 16)
-    buf0, buf1 = max(ldg_in, ldg_out, ldd_in), max(ldd_in, ldd_out)
+    wgmma = dtype == torch.bfloat16
+    lay = _weight_layout(cin, cout, groups, has_d, wgmma)
+    grid = min(-(-batch // samples), sms)
 
     def al(v):
         return -(-v // 16) * 16
 
-    stages = _STAGES if esize == 2 else 0
-    smem = al(rows * buf0 * esize) + al(rows * buf1 * esize) + _ZERO_BYTES \
-        + al(2 * (cin + cout)) + stages * (lay.ntiles * 256 + 16)
+    if wgmma:
+        nt = lay.ncols // (8 * _WGS)
+        kbuf = -(-max(cin, cout) // 64) * 64
+        al4 = lambda v: -(-v // 4) * 4   # noqa: E731
+        fixed = 2 * kbuf * 128 + al(4 * (al4(cin) + al4(cout) + (
+            3 if has_d else 2) * lay.ncols)) + 16 + _ALIGN
+        slot = 32 * lay.ncols + 16      # a k-step and its two mbarriers
+        stages = min(_MAX_STAGES, (SMEM_LIMIT - fixed) // slot)
+        smem = fixed + max(stages, 2) * slot
+        dims = (batch, steps, cin, cout, groups, dil, samples, *lay.window,
+                kbuf, nt, stages, *lay.ks, grid, smem, *lay.offs)
+    else:
+        cgp_in, cgp_out = _cgp(cin // groups), _cgp(cout // groups)
+        ldg_in = _odd_words(groups * cgp_in)
+        ldg_out = _odd_words(groups * cgp_out)
+        ldd_in = _odd_words(-(-cin // 16) * 16)
+        ldd_out = _odd_words(-(-cout // 16) * 16)
+        buf0, buf1 = max(ldg_in, ldg_out, ldd_in), max(ldd_in, ldd_out)
+        nt, stages = -(-ntiles // _WARP_COLS), 0
+        smem = al(rows * buf0 * 4) + al(rows * buf1 * 4) + _ZERO_BYTES \
+            + al(2 * (cin + cout))
+        dims = (batch, steps, cin, cout, groups, dil, samples, cgp_in,
+                cgp_out, ldg_in, ldd_in, ldg_out, ldd_out, buf0, buf1, ntiles,
+                *lay.ks, grid, smem, *lay.offs)
     if smem > SMEM_LIMIT:
         raise ValueError(f"a tile of {rows} rows needs {smem} bytes of shared "
                          f"memory, more than the {SMEM_LIMIT} of a block")
-    grid = min(-(-batch // samples), sms)
-    dims = (batch, steps, cin, cout, groups, dil, samples, cgp_in, cgp_out,
-            ldg_in, ldd_in, ldg_out, ldd_out, buf0, buf1, lay.ntiles,
-            *lay.ks, grid, smem, *lay.offs)
-    return TcnPlan(samples, rows, grid, 1, smem, stages,
-                   -(-lay.ntiles // _WARP_COLS), dims)
+    return TcnPlan(samples, rows, grid, 1, smem, stages, nt, dims,
+                   "wgmma" if wgmma else "fma")
 
 
 def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
@@ -310,13 +387,17 @@ def _launch(x: torch.Tensor, lv: TcnLevelWeights) -> torch.Tensor:
         raise ValueError("the level is not packed for the kernel: pass it "
                          "through level_weights (pack_tcn_levels does)")
     check_tensor(lv.kw, "kw", device=dev, dtype=dt,
-                 shape=(_weight_layout(cin, cout, groups,
-                                       lv.dw is not None).total,))
+                 shape=(_weight_layout(cin, cout, groups, lv.dw is not None,
+                                       plan.path == "wgmma").total,))
     out = torch.empty((b, t, cout), dtype=dt, device=dev)
     dims = (ctypes.c_int * len(plan.dims))(*plan.dims)
     KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), ptr(lv.kw), ptr(lv.g1b),
                   ptr(lv.p1b), ptr(lv.g2b), ptr(lv.p2b), ptr(lv.db), dims,
                   stream_ptr(dev))
+    if plan.path == "wgmma":
+        global wgmma_levels
+        wgmma_levels += 1
+        trace.count("serve.tcn_wgmma_levels")
     return out
 
 
