@@ -7,13 +7,13 @@ their kernels.
 Phases (any failure exits nonzero; nothing is caught):
 
 1. the card (``nvidia-smi`` name and power limit), torch and CUDA versions,
-   and the build of the nine CUDA libraries from ``wiflow_tpu_torch/csrc``
+   and the build of the ten CUDA libraries from ``wiflow_tpu_torch/csrc``
    (one nvcc each, started together), with ptxas's registers and spills
    under each kernel's name, and the tensor-core instructions (``HMMA``,
    ``HGMMA``) that ``cuobjdump -sass`` finds in each kernel of
    ``conv_stack``, ``tcn_level``, ``stage_fused``, ``axial_attention``,
-   ``axial_attention_dual``, ``axial_attention_v1``, ``axial_core`` and
-   ``logits_sums``: ``axial_attention``, ``axial_attention_dual``,
+   ``axial_attention_dual``, ``axial_attention_v1``, ``axial_core``,
+   ``logits_sums`` and ``channel_attention``: ``axial_attention``, ``axial_attention_dual``,
    ``axial_attention_v1`` and ``logits_sums`` must list a bf16 and an fp32
    kernel, the bf16 ones with 126, 252, 0 and 0 ``HMMA`` (one projection on
    the tensor cores, two, none, none), the fp32 ones with none;
@@ -270,7 +270,24 @@ Phases (any failure exits nonzero; nothing is caught):
    (``parallel/mesh.py``) against the same epoch without it: history,
    test metrics, weights and predictions bit for bit, rows 6-9 (and
    10-13 fused) launched as often; ``cli.run --gpu`` one more than the
-   cards must exit nonzero with "more ranks than devices".
+   cards must exit nonzero with "more ranks than devices";
+21. WPformer served at its published widths (``WPformer()``, seeded, its
+   BatchNorms spread), bf16, at the benchmark cell's batch of 512: the
+   channel attention kernel (row 14) on the ``qkv [512, 2160, 2304]``
+   that ``wpformer_forward``'s packed projection computes, and on random
+   inputs at every C the plan takes, odd token counts and 1-4 heads,
+   against ``channel_attention_plain``: max <= 2^-7 and RMS <= 1e-4 of
+   max|plain|, a second launch bit-equal; two faults planted in the plain
+   version (the InstanceNorm skipped, the last head left out) must read
+   above both limits; the kernel and the served forward against the
+   model's stock-op core (``core="stock"``) within 2e-2; ``wpformer_forward``
+   must launch the kernel once; ``make_stream_infer`` over it, traced, on
+   a 633-frame stream (614 windows: 2 batches, 410 rows of padding) must
+   launch it twice and count 1,024 ``serve.channel_attention_windows``
+   and ``stream.rows``; CUDA-event timings of the kernel, its plain
+   version, the stock-op core and the forward on each core, the kernel's
+   bound (1.70 GFLOP, 11.06 MB a window: bytes) and the core's share of a
+   forward.
 
 Phase 4 also holds the stock-op lowerings of ``fast_forward``
 (``fuse_tcn=False``, ``fuse_conv_stack=False``, both) to the plain module
@@ -279,10 +296,14 @@ BatchNorms are spread so that the output varies, with their launches
 (no TCN or no conv-stack kernel) and windows/s.
 
 Phases 11-13 belong to serving and share its weights and inputs, so they
-run after phase 4, before the training phases; phases 14-20 run last.
+run after phase 4, before the training phases; phases 14-21 run last.
+Phase 21 alone: ``python3 -c "import torch, chip_smoke as c; smi, k, a =
+c.build_kernels(('channel_attention',)); c.wpformer_slice(
+torch.device('cuda'), a)"``.
 The last lines are the card's name and power limit, the kernels' JSON
-record (13 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys, rows 10-13
-``tcn_plain_*`` and ``tcn_depthwise_*`` keys), a summary
+record (14 rows; rows 1-3 and 6-13 also carry ``mmfi_*`` keys, rows 10-13
+``tcn_plain_*`` and ``tcn_depthwise_*`` keys, row 14 ``stock_ms``,
+``forward_ms`` and ``forward_stock_ms``), a summary
 of the run (serving and step times, the steps' device busy time and the
 train kernels' share of it, rows 6-9's queued and CUDA-event times,
 the ``logits_sums`` wrappers' host time) and ``{"ok": true, "device":
@@ -364,7 +385,7 @@ V1_ROUND_BATCH = 1001
 # and never in fp32 (no TF32), which phase 1 asserts.
 SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
                   "axial_attention_dual", "axial_attention_v1", "axial_core",
-                  "logits_sums")
+                  "logits_sums", "channel_attention")
 SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252,
                 "axial_attention_v1": 0, "logits_sums": 0}
 # Libraries whose bf16 kernels run their products on wgmma: each must hold
@@ -457,6 +478,21 @@ KILL_EPOCHS = 4
 KILL_EPOCH = 2
 LOSO_PER_SUBJECT = 2_048
 LOSO_EPOCHS = 2
+
+
+# Phase 21: WPformer's served path at the benchmark cell's batch.  The
+# channel attention kernel against its plain version, as a share of
+# max|plain|: max <= one bf16 step of the largest entry (2^-7: a P entry
+# at a rounding edge rounds the other way when the scores sum in another
+# order; 4.6e-3 on an H100), RMS <= 1e-4 (2.0e-5 at the published shape,
+# 4.9e-5 on random inputs, on an H100).  The random inputs: (batch,
+# tokens, C, heads).
+WPFORMER_BATCH = 512
+CA_TOL_MAX = 2.0 ** -7
+CA_TOL_RMS = 1e-4
+CA_SHAPES = ((3, 2160, 256, 3), (2, 37, 256, 3), (2, 100, 64, 2),
+             (1, 33, 128, 4), (5, 1, 64, 1), (2, 2160, 256, 4))
+CA_FAULT_BATCH = 64
 
 
 # Short readings of the run, printed together just before the last line,
@@ -2950,6 +2986,7 @@ def build_kernels(only=None):
     from wiflow_tpu_torch.ops.kernels import axial_attention as attn_k
     from wiflow_tpu_torch.ops.kernels import axial_attention_train as train_k
     from wiflow_tpu_torch.ops.kernels import build as kbuild
+    from wiflow_tpu_torch.ops.kernels import channel_attention as ca_k
     from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
     from wiflow_tpu_torch.ops.kernels import stage_fused as stage_k
     from wiflow_tpu_torch.ops.kernels import tcn_level as tcn_k
@@ -2962,7 +2999,7 @@ def build_kernels(only=None):
         f"python {sys.version.split()[0]}")
     kernels = {"tcn_level": tcn_k.KERNEL, "conv_stack": conv_k.KERNEL,
                "axial_attention": attn_k.KERNEL}
-    all_kernels = {**kernels,
+    all_kernels = {**kernels, "channel_attention": ca_k.KERNEL,
                    "axial_attention_v1": attn_k.KERNEL_V1,
                    "axial_attention_dual": attn_k.KERNEL_DUAL,
                    **{n: getattr(train_k, a) for n, a in KERNEL_ATTRS.items()},
@@ -4692,6 +4729,180 @@ def data_parallel_slice(dev, all_kernels):
     SUMMARY.append(f"data parallel at 1 rank bit-equal; phase 20 {wall:.1f} s")
 
 
+def channel_attention_work(n, c, heads, batch, esize):
+    """(FLOPs, bytes) of a channel attention launch: the scores and the
+    context (2 N C^2 each a head and window); Q, K, V in and the heads'
+    mean context out."""
+    flops = 4 * batch * heads * n * c * c
+    nbytes = batch * n * (3 * heads * c + c) * esize
+    return flops, nbytes
+
+
+def rel_gaps(got, ref):
+    """max and RMS of ``got - ref`` over max|ref|."""
+    d = got.float() - ref.float()
+    scale = ref.float().abs().max().item()
+    return d.abs().max().item() / scale, d.pow(2).mean().sqrt().item() / scale
+
+
+def hold_channel_attention(name, got, ref):
+    """``got`` within ``CA_TOL_MAX`` (max) and ``CA_TOL_RMS`` (RMS) of
+    ``ref``, as shares of max|ref|; returns max|got - ref|."""
+    if got.shape != ref.shape or not torch.isfinite(got).all():
+        raise AssertionError(f"{name}: {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}, or non-finite values")
+    mx, rms = rel_gaps(got, ref)
+    ok = mx <= CA_TOL_MAX and rms <= CA_TOL_RMS
+    log(f"  {name}: max {mx:.3e}, RMS {rms:.3e} of max|ref| (limits "
+        f"{CA_TOL_MAX:.3e}, {CA_TOL_RMS:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{name}: max {mx}, RMS {rms}")
+    return (got.float() - ref.float()).abs().max().item()
+
+
+def channel_attention_fault(qkv, heads, kind):
+    """``channel_attention_plain`` with a fault planted: ``"norm"`` skips
+    the InstanceNorm, ``"head"`` leaves the last head out of the sum."""
+    from wiflow_tpu_torch.ops.kernels import channel_attention as ca
+    q, k, v = ca.split_heads(qkv, heads)
+    s = torch.einsum("bhnc,bhnd->bhcd", q.float(), k.float())
+    s = s / math.sqrt(q.shape[-1])
+    if kind != "norm":
+        mean = s.mean(dim=(-2, -1), keepdim=True)
+        var = s.var(dim=(-2, -1), keepdim=True, unbiased=False)
+        s = (s - mean) * torch.rsqrt(var + ca.EPS)
+    p = torch.softmax(s, dim=-1).to(qkv.dtype).float()
+    if kind == "head":
+        p[:, -1] = 0
+    ctx = torch.einsum("bhcd,bhnd->bnc", p, v.float()) / heads
+    return ctx.to(qkv.dtype)
+
+
+@torch.no_grad()
+def wpformer_slice(dev, all_kernels):
+    """Phase 21: WPformer's served path and its channel attention kernel
+    at published widths (see the module's docstring).  Returns the
+    kernel's record row."""
+    from wiflow_tpu_torch.eval.streaming import (
+        make_stream_infer, sliding_windows,
+    )
+    from wiflow_tpu_torch.models.baselines import wpformer as wp
+    from wiflow_tpu_torch.ops.kernels import channel_attention as ca
+    from wiflow_tpu_torch.utils import trace
+    b = WPFORMER_BATCH
+    log(f"phase 21: WPformer served, batch {b} (bf16), its channel "
+        f"attention kernel")
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    for bb, n, c, h in CA_SHAPES:
+        qkv = (torch.randn((bb, n, 3 * h * c), generator=gen, device=dev)
+               .to(torch.bfloat16))
+        got = ca.channel_attention(qkv, h)
+        same_bits(f"channel attention, random b{bb} n{n} c{c} h{h}", (got,),
+                  (ca.channel_attention(qkv, h),))
+        hold_channel_attention(f"kernel vs plain, random b{bb} n{n} c{c} "
+                               f"h{h}", got, ca.channel_attention_plain(qkv, h))
+
+    model = wp.WPformer(device=dev,
+                        generator=torch.Generator().manual_seed(SEED))
+    nontrivial_stats(model)
+    packed = wp.pack_wpformer(model)
+    heads, window = packed.heads, 20
+    x = torch.randn((b, 540, window), generator=gen, device=dev)
+    seen = {}
+    core = wp._served_core
+
+    def keep(qkv, h, which):
+        seen["qkv"] = qkv
+        return core(qkv, h, which)
+
+    wp._served_core = keep
+    try:
+        reset_launches(all_kernels)
+        out = wp.wpformer_forward(packed, x)
+        expect_launches("wpformer_forward", read_launches(all_kernels),
+                        {"channel_attention": 1})
+    finally:
+        wp._served_core = core
+    qkv = seen.pop("qkv")
+    log(f"  the served projection: qkv {tuple(qkv.shape)} {qkv.dtype}")
+    got = ca.channel_attention(qkv, heads)
+    same_bits("channel attention, published shape", (got,),
+              (ca.channel_attention(qkv, heads),))
+    plain = ca.channel_attention_plain(qkv, heads)
+    err = hold_channel_attention("kernel vs plain, published shape", got,
+                                 plain)
+    compare("kernel vs the model's stock-op core", got,
+            wp.channel_attention_core(*ca.split_heads(qkv, heads)), TOL_BF16)
+    sub, ref = qkv[:CA_FAULT_BATCH], plain[:CA_FAULT_BATCH]
+    for kind in ("norm", "head"):
+        mx, rms = rel_gaps(channel_attention_fault(sub, heads, kind), ref)
+        log(f"  fault {kind!r} planted in the plain version: max {mx:.3e}, "
+            f"RMS {rms:.3e} of max|ref|")
+        if mx <= CA_TOL_MAX or rms <= CA_TOL_RMS:
+            raise AssertionError(f"fault {kind!r} reads within a limit: "
+                                 f"max {mx}, RMS {rms}")
+    del got, plain, sub, ref
+    stock = wp.wpformer_forward(packed, x, core="stock")
+    compare("wpformer_forward, kernel vs stock-op core", out, stock, TOL_BF16)
+
+    sgen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    stream = torch.randn((b + max(1, b // 5) + window - 1, 540),
+                         generator=sgen, device=dev)
+    fwd = lambda w: wp.wpformer_forward(packed, w)   # noqa: E731
+    infer = make_stream_infer(fwd, window=window, batch=b, device=dev)
+    reset_launches(all_kernels)
+    trace.collect()
+    trace.enable()
+    try:
+        poses = infer(stream)
+    finally:
+        trace.disable()
+    counts = trace.collect().counts
+    expect_launches("the stream over wpformer_forward",
+                    read_launches(all_kernels), {"channel_attention": 2})
+    log(f"  stream counters: {json.dumps(counts)}")
+    if (counts.get("serve.channel_attention_windows") != 2 * b
+            or counts.get("stream.rows") != 2 * b):
+        raise AssertionError(f"the stream counted {counts}, not {2 * b} "
+                             f"rows through the kernel")
+    direct = sliding_windows(stream, window)
+    compare("stream vs wpformer_forward, first batch", poses[:b],
+            fwd(direct[:b]), TOL_F32)
+    compare("stream vs wpformer_forward, padded batch", poses[b:],
+            fwd(direct[b:]), TOL_BF16)
+    del stream, poses, direct
+
+    t = {"kernel": time_ms(lambda: ca.channel_attention(qkv, heads), RUNS),
+         "plain": time_ms(lambda: ca.channel_attention_plain(qkv, heads),
+                          RUNS),
+         "stock": time_ms(lambda: wp.channel_attention_core(
+             *ca.split_heads(qkv, heads)), RUNS),
+         "forward": time_ms(lambda: fwd(x), RUNS // 2),
+         "forward_stock": time_ms(
+             lambda: wp.wpformer_forward(packed, x, core="stock"), RUNS // 2)}
+    n, c = qkv.shape[1], qkv.shape[2] // (3 * heads)
+    bms, by = bound_ms(*channel_attention_work(n, c, heads, b, 2),
+                       torch.bfloat16)
+    log(f"  channel attention kernel {t['kernel']:.4f} ms (bound {bms:.4f} "
+        f"ms by {by}, {100 * bms / t['kernel']:.2f}%), plain "
+        f"{t['plain']:.4f}, the model's stock-op core {t['stock']:.4f}")
+    log(f"  wpformer_forward {t['forward']:.4f} ms = "
+        f"{b / t['forward'] * 1e3:.1f} windows/s (the core "
+        f"{100 * t['kernel'] / t['forward']:.2f}%); on the stock-op core "
+        f"{t['forward_stock']:.4f} ms (the core "
+        f"{100 * t['stock'] / t['forward_stock']:.2f}%); peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    SUMMARY.append(f"wpformer_forward b{b} {t['forward']:.4f} ms; channel "
+                   f"attention {t['kernel']:.4f} ms ({by}-bound "
+                   f"{bms:.4f})")
+    return {"name": "channel_attention", "route": "cuda",
+            "source": ca.KERNEL.source, "replaces": ca.KERNEL.replaces,
+            "launches": 1, "max_abs_err": err, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "stock_ms": t["stock"],
+            "forward_ms": t["forward"], "forward_stock_ms": t["forward_stock"]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4742,6 +4953,9 @@ def main() -> int:
 
     # -- phase 20: data parallelism at one rank ------------------------------
     data_parallel_slice(dev, all_kernels)
+
+    # -- phase 21: WPformer served, its channel attention kernel ------------
+    record.append(wpformer_slice(dev, all_kernels))
 
     log(smi)
     log(json.dumps({"kernels": record}))

@@ -18,14 +18,20 @@ ResNet34 ``state_dict`` onto the trunk (ref model.py:302-344).  Layout and
 names as in ``models/baselines/hpeli.py``; flax's ``nn.LayerNorm`` (eps
 1e-6 here) and tanh ``nn.gelu`` are kept, and the four dropouts of the
 transformer are the reference's 0.1.
+
+Served (eval): :func:`pack_wpformer` once, then :func:`wpformer_forward`,
+bf16 throughout, the channel attention's core on
+``ops/kernels/channel_attention.py``'s kernel on a CUDA device.  The
+train-mode forward keeps the stock ops (:func:`channel_attention_core`).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Mapping, NamedTuple, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from wiflow_tpu_torch.core.config import resolve_device
@@ -34,6 +40,10 @@ from wiflow_tpu_torch.models.baselines.hpeli import conv2d, flax_param
 from wiflow_tpu_torch.models.baselines.performer import dense, layer_norm
 from wiflow_tpu_torch.models.baselines.wisppn import resize_bilinear
 from wiflow_tpu_torch.models.layers import TorchBatchNorm, TorchDropout
+from wiflow_tpu_torch.ops.kernels.channel_attention import (
+    channel_attention, split_heads,
+)
+from wiflow_tpu_torch.utils import trace
 
 
 class ResBasicBlock(nn.Module):
@@ -129,17 +139,29 @@ class ChannelAttention(nn.Module):
                                 for m in self.head_weights(w)], dim=1)
 
         q, k, v = heads("wq"), heads("wk"), heads("wv")     # [B, H, N, C]
-        scores = torch.einsum("bhnc,bhnd->bhcd", q.float(), k.float())
-        scores = scores / math.sqrt(self.channels)
-        # InstanceNorm2d(heads), affine=False: per (b, h) over [C, C]
-        mean = scores.mean(dim=(-2, -1), keepdim=True)
-        var = scores.var(dim=(-2, -1), keepdim=True, unbiased=False)
-        scores = (scores - mean) * torch.rsqrt(var + 1e-5)
-        probs = self.attn_drop(torch.softmax(scores, dim=-1).to(x.dtype))
-        ctx = torch.einsum("bhcd,bhnd->bhcn", probs.float(),
-                           v.float()).to(x.dtype)
-        ctx = ctx.permute(0, 3, 2, 1).mean(dim=3)            # [B, N, C]
+        ctx = channel_attention_core(q, k, v, self.attn_drop)
         return self.proj_drop(ctx @ self.head_weights("wo").to(x.dtype))
+
+
+def channel_attention_core(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           drop=None) -> torch.Tensor:
+    """The model's core in stock ops: ``q, k, v [B, H, N, C]`` -> the
+    heads' mean context ``[B, N, C]`` in ``q``'s dtype.  Scores ``[C, C]``
+    in fp32, InstanceNorm over each head's whole map, row softmax rounded
+    to ``q``'s dtype, ``drop`` (the attention dropout) on it, each head's
+    context rounded before the mean."""
+    scores = torch.einsum("bhnc,bhnd->bhcd", q.float(), k.float())
+    scores = scores / math.sqrt(q.shape[-1])
+    # InstanceNorm2d(heads), affine=False: per (b, h) over [C, C]
+    mean = scores.mean(dim=(-2, -1), keepdim=True)
+    var = scores.var(dim=(-2, -1), keepdim=True, unbiased=False)
+    scores = (scores - mean) * torch.rsqrt(var + 1e-5)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if drop is not None:
+        probs = drop(probs)
+    ctx = torch.einsum("bhcd,bhnd->bhcn", probs.float(),
+                       v.float()).to(q.dtype)
+    return ctx.permute(0, 3, 2, 1).mean(dim=3)              # [B, N, C]
 
 
 class ChannelTransformer(nn.Module):
@@ -277,6 +299,130 @@ class WPformer(FlaxLayout, nn.Module):
         y = torch.relu(self.decode_bn2(conv2d(y, self.decode_conv2_weight)))
         # mean over width, then BatchNorm1d(D) over (B, K)
         return self.final_bn(y.float().mean(dim=2))        # [B, K, D]
+
+
+class ServedLayer(NamedTuple):
+    """One encoder layer's weights in the compute dtype."""
+
+    attn_norm: nn.LayerNorm
+    wqkv: torch.Tensor       # [C, 3 H C]: q_0 .. q_{H-1}, k_0 .., v_0 ..
+    wo: torch.Tensor         # [C, C]
+    ffn_norm: nn.LayerNorm
+    w_in: torch.Tensor       # [4C, C], as nn.Linear holds it
+    b_in: torch.Tensor
+    w_out: torch.Tensor      # [C, 4C]
+    b_out: torch.Tensor
+
+
+class ServedWPformer(NamedTuple):
+    """What :func:`wpformer_forward` reads: the eval model (its trunk, its
+    BatchNorms and LayerNorms) and its transformer's weights packed once
+    in the compute dtype."""
+
+    model: "WPformer"
+    dtype: torch.dtype
+    heads: int
+    pos: torch.Tensor        # [1, N, C]
+    layers: Tuple[ServedLayer, ...]
+    rec_w: torch.Tensor      # [C, C, 1, 1]
+    rec_b: torch.Tensor      # [C]
+
+
+@torch.no_grad()
+def pack_wpformer(model: "WPformer") -> ServedWPformer:
+    """Pack ``model`` (put in eval mode) for :func:`wpformer_forward`: each
+    layer's 3 H head projections side by side as one ``[C, 3 H C]``
+    matrix, and every transformer weight in the compute dtype."""
+    model.eval()
+    dt = getattr(torch, model.compute_dtype)
+    tf = model.tf
+    pos, _, _, rec_w, rec_b, _ = tf.outer_parts()
+    layers = []
+    for i in range(tf.num_layers):
+        attn_norm, attn, ffn_norm, mlp_in, _, mlp_out, _ = tf.layer_parts(i)
+        wqkv = torch.cat([m for w in ("wq", "wk", "wv")
+                          for m in attn.head_weights(w)], dim=1)
+        layers.append(ServedLayer(
+            attn_norm, wqkv.to(dt).contiguous(),
+            attn.head_weights("wo").to(dt).contiguous(), ffn_norm,
+            mlp_in.weight.to(dt), mlp_in.bias.to(dt),
+            mlp_out.weight.to(dt), mlp_out.bias.to(dt)))
+    heads = tf.layer_parts(0)[1].heads
+    return ServedWPformer(model, dt, heads, pos.to(dt), tuple(layers),
+                          rec_w.to(dt), rec_b.to(dt))
+
+
+def _served_core(qkv: torch.Tensor, heads: int, core: str) -> torch.Tensor:
+    if core == "kernel":
+        trace.count("serve.channel_attention_windows", qkv.shape[0])
+        return channel_attention(qkv, heads)
+    return channel_attention_core(*split_heads(qkv, heads))
+
+
+@torch.no_grad()
+def wpformer_forward(packed: ServedWPformer, x: torch.Tensor,
+                     core: str = "auto") -> torch.Tensor:
+    """Eval forward of the packed model (``input_mode='wiflow'``):
+    ``[B, 540, 20]`` CSI windows -> ``[B, 15, 2]`` fp32 keypoints, on the
+    model's device.
+
+    The model's own layers, in its compute dtype throughout: where the
+    eval forward lets each LayerNorm's fp32 output carry the transformer
+    in fp32, this one rounds it to the compute dtype, so the projections,
+    the core and the MLP run on bf16 tensor cores.  ``core`` lowers the
+    channel attention's core: ``"kernel"`` the hand-written kernel
+    (``ops/kernels/channel_attention.py``; its plain version on the CPU),
+    ``"stock"`` the model's stock ops, ``"auto"`` (the default) the
+    kernel on a CUDA device in bfloat16 and the stock ops elsewhere.
+
+    Spans: ``serve.forward`` > ``serve.prep`` (chunks and resize),
+    ``serve.trunk`` (the shared ResNet trunk over every stream),
+    ``serve.channel_attention`` (the BatchNorm before it, the channel
+    transformer, its reconstruction and residual), ``serve.decode``;
+    counters ``serve.wpformer_streams`` (trunk images: streams x rows) and
+    ``serve.channel_attention_windows`` (windows whose core went through
+    the kernel's wrapper)."""
+    m = packed.model
+    if m.input_mode != "wiflow":
+        raise ValueError("wpformer_forward serves input_mode 'wiflow' only")
+    dev = m.tf.position_embeddings.device
+    if core == "auto":
+        core = ("kernel" if dev.type == "cuda"
+                and packed.dtype == torch.bfloat16 else "stock")
+    if core not in ("kernel", "stock"):
+        raise ValueError(f"core={core!r}: 'auto', 'kernel' or 'stock'")
+    dt = packed.dtype
+    with trace.span("serve.forward"):
+        with trace.span("serve.prep"):
+            b = x.shape[0]
+            x = x.to(device=dev, dtype=dt)
+            xs = x.reshape(b * m.num_chunks, x.shape[1] // m.num_chunks,
+                           x.shape[2])
+            xs = resize_bilinear(xs[..., None], m.resize_to)
+            trace.count("serve.wpformer_streams", xs.shape[0])
+        with trace.span("serve.trunk"):
+            feats = m.trunk(xs)
+        with trace.span("serve.channel_attention"):
+            fh, fw, fc = feats.shape[1:]
+            feats = feats.reshape(b, m.num_chunks, fh, fw, fc).transpose(1, 2)
+            feats = m.pre_tf_bn(feats.reshape(b, fh, m.num_chunks * fw, fc))
+            t = feats.reshape(b, -1, fc) + packed.pos
+            for lay in packed.layers:
+                y = layer_norm(lay.attn_norm, t).to(dt)
+                ctx = _served_core(y @ lay.wqkv, packed.heads, core)
+                t = t + ctx @ lay.wo
+                y = layer_norm(lay.ffn_norm, t).to(dt)
+                y = F.gelu(F.linear(y, lay.w_in, lay.b_in), approximate="tanh")
+                t = t + F.linear(y, lay.w_out, lay.b_out)
+            _, _, encoder_norm, _, _, rec_bn = m.tf.outer_parts()
+            t = layer_norm(encoder_norm, t).to(dt)
+            y = conv2d(t.reshape(feats.shape), packed.rec_w, packed.rec_b)
+            feats = torch.relu(rec_bn(y)) + feats
+        with trace.span("serve.decode"):
+            y = torch.relu(m.decode_bn1(conv2d(feats,
+                                               m.decode_conv1_weight)))
+            y = torch.relu(m.decode_bn2(conv2d(y, m.decode_conv2_weight)))
+            return m.final_bn(y.float().mean(dim=2))
 
 
 def wpformer_mmfi(compute_dtype: str = "bfloat16", *, device=None,
