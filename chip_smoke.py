@@ -17,8 +17,8 @@ Phases (any failure exits nonzero; nothing is caught):
    ``axial_attention_v1`` and ``logits_sums`` must list a bf16 and an fp32
    kernel, the bf16 ones with 126, 252, 0 and 0 ``HMMA`` (one projection on
    the tensor cores, two, none, none), the fp32 ones with none;
-   ``tcn_level``'s bf16 kernels (one a wgmma width) must hold ``HGMMA``,
-   its fp32 kernel none;
+   ``tcn_level``'s bf16 kernels (one a wgmma width) and ``conv_stack``'s
+   bf16 kernel must hold ``HGMMA``, their fp32 kernels none;
 2. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes for batch 4096 (TCN ``[4096, 20, 540]``, conv stack
    ``[81920, 240]``, attention ``[4096, 15, 20, 64]``) and at 7 samples (101
@@ -287,7 +287,17 @@ Phases (any failure exits nonzero; nothing is caught):
    and ``stream.rows``; CUDA-event timings of the kernel, its plain
    version, the stock-op core and the forward on each core, the kernel's
    bound (1.70 GFLOP, 11.06 MB a window: bytes) and the core's share of a
-   forward.
+   forward;
+22. the conv stack kernel (row 2) on random weights and N(0, 1) rows at
+   the shapes of ``CONV_SWEEP`` (the flagship at batch 1, 7, 4095 and
+   4096, MM-Fi's chunks of 297-4096 windows, odd widths): bf16 and fp32
+   against the fp32 plain version, a relaunch bit-equal, the count of
+   convolutions on wgmma equal to the plan's; with ``--parent DIR`` (a
+   checkout of the parent commit) fp32 equal to the parent's kernel bit
+   for bit, and row 2 and the MM-Fi line timed beside the parent's in
+   turns (parent, this, this, parent).  Alone: ``python3 -c "import
+   torch, chip_smoke as c; c.build_kernels(('conv_stack',));
+   c.conv_stack_slice(torch.device('cuda'), 'DIR')"``.
 
 Phase 4 also holds the stock-op lowerings of ``fast_forward``
 (``fuse_tcn=False``, ``fuse_conv_stack=False``, both) to the plain module
@@ -389,8 +399,9 @@ SASS_LIBRARIES = ("conv_stack", "tcn_level", "stage_fused", "axial_attention",
 SASS_CHECKED = {"axial_attention": 126, "axial_attention_dual": 252,
                 "axial_attention_v1": 0, "logits_sums": 0}
 # Libraries whose bf16 kernels run their products on wgmma: each must hold
-# HGMMA, the fp32 ones none (the TCN level: one bf16 kernel a wgmma width).
-SASS_WGMMA = ("tcn_level",)
+# HGMMA, the fp32 ones none (the TCN level: one bf16 kernel a wgmma width;
+# the conv stack: one bf16 kernel, every width inside).
+SASS_WGMMA = ("tcn_level", "conv_stack")
 SASS_OPS = ("HMMA", "HGMMA")
 # The random-weight checks of the redesigned serving kernels: the spread of
 # the reference over rows must be at least this share of its largest value
@@ -4903,7 +4914,134 @@ def wpformer_slice(dev, all_kernels):
             "forward_ms": t["forward"], "forward_stock_ms": t["forward_stock"]}
 
 
-def main() -> int:
+# Phase 22: the conv stack kernel's shapes beyond the served batch (rows =
+# windows x frames): the flagship at batch 1, 7, 4095 and 4096; MM-Fi's
+# chunks (multiples of 297 windows and 4096, of 10 frames); odd widths.
+CONV_SWEEP = (("flagship", 240, (20, 140, 81900, 81920)),
+              ("mmfi", 272, (2970, 11880, 20790, 38610, 40960)),
+              ("odd", 241, (7, 301)), ("odd", 33, (1, 300)),
+              ("odd", 17, (64,)))
+
+
+def parent_conv_stack(root, name="parent"):
+    """The conv stack module of another checkout (the parent commit) and
+    its kernel, built by nvcc from that checkout's ``csrc`` with this
+    tree's flags into that checkout's build directory."""
+    import ctypes
+    import importlib.util
+    from pathlib import Path
+    from wiflow_tpu_torch.ops.kernels import build as kbuild
+    root = Path(root).resolve()
+    out = root / "wiflow_tpu_torch" / "build" / f"libconv_stack-{name}.so"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    subprocess.run([kbuild._nvcc(), *kbuild.NVCC_FLAGS, "-o", str(out),
+                    str(root / "wiflow_tpu_torch" / "csrc" / "conv_stack.cu")],
+                   check=True, capture_output=True, text=True)
+    log(f"  the {name}'s conv_stack built from {root}: "
+        f"{time.perf_counter() - t0:.1f} s")
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_conv_stack",
+        root / "wiflow_tpu_torch" / "ops" / "kernels" / "conv_stack.py")
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = mod
+    spec.loader.exec_module(mod)
+    lib = ctypes.CDLL(str(out))
+    fn = getattr(lib, mod.KERNEL.symbol)
+    fn.argtypes, fn.restype = mod.KERNEL.argtypes, ctypes.c_int
+    lib.wf_error_string.argtypes = [ctypes.c_int]
+    lib.wf_error_string.restype = ctypes.c_char_p
+    mod.KERNEL._lib, mod.KERNEL._fn = lib, fn
+    return mod
+
+
+@torch.no_grad()
+def conv_stack_slice(dev, parent=None):
+    """Phase 22: the conv stack kernel (bf16 on wgmma, fp32 on CUDA cores)
+    on random weights (``random_serving_weights``) and N(0, 1) rows at
+    the shapes of ``CONV_SWEEP``: both dtypes against the fp32 plain
+    version, a relaunch bit-equal, the plan and the wgmma count printed.
+    With ``parent`` (a checkout of the parent commit), the parent's
+    kernel too: fp32 bit-equal to it, and rows 2 (batch 4096) and the
+    MM-Fi line timed beside it in turns, parent, this, this, parent.
+    Returns {model: (ms, parent ms or None)}."""
+    from wiflow_tpu_torch.core.config import ModelConfig
+    from wiflow_tpu_torch.models.wiflow_mmfi import MMFiModelConfig
+    from wiflow_tpu_torch.ops.kernels import conv_stack as conv_k
+    bf = torch.bfloat16
+    log("phase 22: the conv stack kernel, shapes and the parent")
+    old = parent_conv_stack(parent) if parent else None
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    cfgs = {"flagship": ModelConfig(), "mmfi": MMFiModelConfig(),
+            "odd": ModelConfig()}
+    times = {}
+    for name, w0, row_counts in CONV_SWEEP:
+        _, blocks = random_serving_weights(cfgs[name], gen, dev)
+        packed = {dt: conv_k.stack_weights([conv_k.ConvBlockWeights(
+            *[v.to(dt) if isinstance(v, torch.Tensor) and v.ndim > 1 else v
+              for v in blk]) for blk in blocks]) for dt in (torch.float32, bf)}
+        chans = conv_k._chans(packed[bf])
+        x = torch.randn((max(row_counts), w0), generator=gen, device=dev)
+        for rows in row_counts:
+            xr = x[:rows]
+            plan = conv_k.conv_stack_plan(rows, w0, chans, bf)
+            tag = f"conv stack {name} w0 {w0}, {rows} rows"
+            log(f"  {tag}: plan {plan.wgs} warpgroups x {plan.tile_rows} "
+                f"rows, grid {plan.grid}, {plan.smem} bytes, "
+                f"{plan.wgmma_convs} convs on wgmma")
+            ref = conv_k.conv_stack_plain(xr, packed[torch.float32])
+            before = conv_k.wgmma_convs
+            got = conv_k.fused_conv_stack_eval(xr.to(bf), packed[bf])
+            if conv_k.wgmma_convs - before != plan.wgmma_convs:
+                raise AssertionError(f"{tag}: {conv_k.wgmma_convs - before} "
+                                     f"convs counted on wgmma, the plan "
+                                     f"says {plan.wgmma_convs}")
+            compare(f"{tag} bf16", got, ref, TOL_BF16)
+            same_bits(f"{tag} bf16", [got], [conv_k.fused_conv_stack_eval(
+                xr.to(bf), packed[bf])])
+            got32 = conv_k.fused_conv_stack_eval(xr, packed[torch.float32])
+            compare(f"{tag} fp32", got32, ref, TOL_F32)
+            if old is not None:
+                old32 = old.stack_weights(packed[torch.float32].blocks)
+                if not torch.equal(got32, old.fused_conv_stack_eval(xr,
+                                                                    old32)):
+                    raise AssertionError(f"{tag} fp32: differs from the "
+                                         f"parent's kernel")
+                log(f"  {tag} fp32: equal to the parent's bit for bit")
+            del ref, got, got32
+        if name == "odd":
+            continue
+        rows = max(row_counts)
+        x16 = x[:rows].to(bf)
+        kfn = lambda: conv_k.fused_conv_stack_eval(x16, packed[bf])  # noqa
+        if old is None:
+            ms, pms = time_ms(kfn, RUNS), None
+        else:
+            old16 = old.stack_weights(packed[bf].blocks)
+            pfn = lambda: old.fused_conv_stack_eval(x16, old16)  # noqa
+            p1, m1, m2, p2 = (time_ms(f, RUNS) for f in (pfn, kfn, kfn, pfn))
+            ms, pms = statistics.median([m1, m2]), statistics.median([p1, p2])
+            log(f"  conv stack {name}, {rows} rows, bf16, turns parent / "
+                f"this / this / parent: {p1:.4f} / {m1:.4f} / {m2:.4f} / "
+                f"{p2:.4f} ms")
+        bms, by = bound_ms(*conv_work(cfgs[name], rows, 2), bf)
+        log(f"  conv stack {name}, {rows} rows, bf16: {ms:.4f} ms"
+            + ("" if pms is None else f" (parent {pms:.4f} ms)")
+            + f", bound {bms:.4f} ms ({by}), {100 * bms / ms:.2f}% of it")
+        SUMMARY.append(f"conv stack {name} {rows} rows {ms:.4f} ms"
+                       + ("" if pms is None else f" (parent {pms:.4f})"))
+        times[name] = (ms, pms)
+    torch.cuda.synchronize()
+    return times
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description="the port on one CUDA card")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: phase 22 times "
+                         "the conv stack kernel beside its")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -4956,6 +5094,9 @@ def main() -> int:
 
     # -- phase 21: WPformer served, its channel attention kernel ------------
     record.append(wpformer_slice(dev, all_kernels))
+
+    # -- phase 22: the conv stack kernel's shapes, beside the parent's ------
+    conv_stack_slice(dev, args.parent)
 
     log(smi)
     log(json.dumps({"kernels": record}))

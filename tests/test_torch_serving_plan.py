@@ -26,10 +26,11 @@ from wiflow_tpu_torch.models.wiflow_mmfi import MMFiModelConfig, WiFlowMMFiModel
 from wiflow_tpu_torch.ops.kernels import conv_stack as ck
 from wiflow_tpu_torch.ops.kernels import tcn_level as tk
 from wiflow_tpu_torch.ops.kernels.build import SMEM_LIMIT
-from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
+from wiflow_tpu_torch.ops.kernels.fragments import to_fragments, to_wgmma_b
 from wiflow_tpu_torch.utils import trace
 
 DTYPES = {"bf16": torch.bfloat16, "fp32": torch.float32}
+SLACK = (64 + 4) * 16   # bytes after the bf16 kernel's regions
 BATCHES = (1, 7, 4096)
 MODELS = ("flagship", "mmfi")
 
@@ -80,16 +81,24 @@ def from_fragments(f, kp, n):
 
 def conv_k_matrices(stack):
     """The packed weights read back: per block, per conv, its ``[K_pad,
-    C_out]`` fp32 matrix (empty for an elementwise conv)."""
-    shapes, _, _ = ck._stack_shapes(ck._chans(stack.blocks))
+    C_out]`` fp32 matrix (empty for an elementwise conv), rows in the
+    packing's order (fp32: tap-major, then the shortcut; bf16: the views of
+    ``wgmma_steps``)."""
+    chans = ck._chans(stack.blocks)
+    shapes, _, _ = ck._stack_shapes(chans)
+    bf16 = stack.wpack.dtype == torch.bfloat16
+    if bf16:
+        woffs, _ = ck._wgmma_woffs(chans)
+        steps = ck.wgmma_steps(chans)
     out = []
-    for sh in shapes:
+    for k, sh in enumerate(shapes):
         mats = []
-        for cs in sh.convs:
-            kp = cs.ksteps * 16
-            f = stack.wpack[cs.woff:cs.woff + kp * sh.co].float().cpu()
-            if stack.wpack.dtype == torch.bfloat16:
-                f = from_fragments(f, kp, sh.co)
+        for j, cs in enumerate(sh.convs):
+            kp = 16 * (len(steps[k][j]) if bf16 else cs.ksteps)
+            at = woffs[k][j] if bf16 else cs.woff
+            f = stack.wpack[at:at + kp * sh.co].float().cpu()
+            if bf16:
+                f = from_wgmma_b(f, kp, sh.co)
             mats.append(f.reshape(kp, sh.co))
         out.append(mats)
     return out
@@ -164,7 +173,7 @@ def check_conv_plan(plan, rows, w0, chans, dtype):
         assert tuple(d[:7]) == (ci, co, stride, win, (win - 1) // stride + 1,
                                 ld_in, ld)
         assert ci == cin and co % 8 == 0 and ld >= co
-        # ldmatrix rows: 16 bytes each, an odd number of 16-byte words
+        # a position's row: 16-byte words, an odd number of them
         assert ld % 8 == 0 and (ld // 8) % 2 == 1
         assert d[4] * ld <= plan.row_elems
         chunks = (3 * ci // 8, 3 * co // 8,
@@ -186,6 +195,107 @@ def check_conv_plan(plan, rows, w0, chans, dtype):
         cin, win, ld_in = co, d[4], ld
 
 
+def check_wgmma_conv_plan(plan, rows, w0, chans, sms=132):
+    """What ``csrc/conv_stack.cu::plan_ok_w`` and the bf16 kernel assume."""
+    al = lambda v: -(-v // 16) * 16   # noqa: E731
+    assert plan.path == "wgmma" and 2 <= plan.wgs <= 5
+    nblk, nkst = len(chans), len(plan.ksteps)
+    slack = (64 + 4) * 16      # views read past the last region
+    fixed = (al(4 * plan.nvec) + al(2 * plan.wfrag)
+             + al((3 * nblk * 16 + 2 * nkst) * 4) + slack)
+    assert plan.smem == fixed + plan.wgs * plan.region <= SMEM_LIMIT
+    # a warpgroup's region: its input rows (with the 16-byte slack of their
+    # aligned cover), then its buffers
+    r = plan.tile_rows
+    assert plan.xbuf % 16 == 0 and plan.xbuf >= 2 * r * w0 + 32
+    assert plan.region % 16 == 0 and plan.region > plan.xbuf
+    # every row in exactly one tile, every tile in exactly one warpgroup:
+    # warpgroup g of block b takes tiles b wgs + g, then grid wgs apart
+    ntiles = -(-rows // r)
+    assert plan.grid == min(sms, -(-ntiles // plan.wgs))
+    seen = np.zeros(rows, np.int32)
+    for b in range(plan.grid):
+        for g in range(plan.wgs):
+            for t in range(b * plan.wgs + g, ntiles, plan.grid * plan.wgs):
+                seen[t * r:(t + 1) * r] += 1
+    assert (seen == 1).all()
+    # each row padded with a zero position at both ends; a stride-2
+    # block's input in even and odd planes; a plane holds the tile's
+    # positions, 16 bytes each
+    w = w0
+    for k, (ci, co, stride) in enumerate(chans):
+        w = (w - 1) // stride + 1
+        assert plan.widths[k] == w and plan.row_stride[k] == w + 2
+        assert plan.planes[k] == stride
+        assert plan.plane_bytes[k] == r * (w + 2) * 16
+    # each block's buffers (input, h1, h2, output) inside the region, 16-byte
+    # aligned, the output the next block's input, and no two of those live
+    # at one conv (conv2: input, h1, h2; conv3: input, h2, output) overlap
+    for k, (ci, co, _) in enumerate(chans):
+        x_off, h1, h2, out = plan.buffers[k]
+        pb = plan.plane_bytes[k]
+        last = k == len(chans) - 1
+        size = {"x": ci // 8 * plan.planes[k] * pb if k else 0,
+                "h1": co // 8 * pb, "h2": co // 8 * pb,
+                "out": (r * co * plan.widths[-1] * 2 if last else
+                        co // 8 * plan.planes[k + 1] * plan.plane_bytes[k + 1])}
+        at = {"x": x_off, "h1": h1, "h2": h2, "out": out}
+        assert x_off == (plan.buffers[k - 1][3] if k else 0)
+        for name in ("h1", "h2", "out"):
+            assert at[name] % 16 == 0 and plan.xbuf <= at[name]
+            assert at[name] + size[name] <= plan.region
+        for live in (("x", "h1", "h2"), ("x", "h2", "out")):
+            spans = sorted((at[n], at[n] + size[n]) for n in live
+                           if size[n] and (n != "x" or k))
+            assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:]))
+    assert plan.dims[:3] == (plan.region, plan.xbuf, nkst)
+    flat = [v for c in plan.convs for v in c] + [
+        v for e in plan.ksteps for v in e]
+    assert plan.dims[3:] == tuple(flat)
+    n_wgmma = 0
+    for i, c in enumerate(plan.convs):
+        (kind, nt, ks, kf, woff, boff, mp, q, dst, dpb, dp, dq, wdoff, stride,
+         w1off, co) = c
+        k, j = divmod(i, 3)
+        ci = chans[k][0]
+        assert co == chans[k][1] == 8 * nt and nt <= 8
+        assert q == plan.row_stride[k] and mp == r * q
+        assert stride == chans[k][2] and boff + co <= plan.nvec
+        assert plan.xbuf <= dst and dst % 16 == 0
+        if kind == 1:
+            # ConvBlock1's 1-channel conv, elementwise, into h1's planes
+            assert i == 0 and ci == 1 and ks == 0 and dp == 1
+            assert w1off + 3 * co <= plan.nvec
+        else:
+            n_wgmma += 1
+            assert kind == 0 and ks >= 1 and kf + ks <= nkst
+            assert woff % 16 == 0 and woff + 32 * co * ks <= 2 * plan.wfrag
+            span = 64 * -(-mp // 64) * 16
+            for a_off, lbo in plan.ksteps[kf:kf + ks]:
+                assert a_off >= 0 and a_off % 16 == 0
+                assert lbo >= 16 and lbo % 16 == 0 and lbo < 2 ** 18
+                assert a_off + lbo + span <= plan.region + slack
+        assert (wdoff >= 0) == (k == 0 and j == 2 and ci == 1)
+        if i == len(plan.convs) - 1:
+            # the stack's output staged [row][C][W]
+            assert dp == 0 and dst + r * co * (q - 2) * 2 <= plan.region
+        elif j < 2 or chans[k + 1][2] == 1:
+            assert dp == 1 and dpb >= mp * 16
+            assert dst + (co // 8) * dpb <= plan.region
+        else:
+            assert dp == 2 and dq == plan.row_stride[k + 1]
+            assert (q - 1) // 2 < dq and dpb == plan.plane_bytes[k + 1]
+            assert dst + 2 * (co // 8) * dpb <= plan.region
+    assert plan.wgmma_convs == n_wgmma == 3 * nblk - 1
+
+
+def check_plan(plan, rows, w0, chans, dtype, sms=132):
+    if dtype == torch.bfloat16:
+        check_wgmma_conv_plan(plan, rows, w0, chans, sms)
+    else:
+        check_conv_plan(plan, rows, w0, chans, dtype)
+
+
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
 @pytest.mark.parametrize("batch", BATCHES)
 @pytest.mark.parametrize("name", MODELS)
@@ -194,14 +304,30 @@ def test_conv_stack_plan_at_model_shapes(name, batch, dtype):
     chans = ck._chans(stack(name, dtype))
     rows = batch * cfg.window_size
     plan = ck.conv_stack_plan(rows, conv_w0(name), chans, dtype)
-    check_conv_plan(plan, rows, conv_w0(name), chans, dtype)
+    check_plan(plan, rows, conv_w0(name), chans, dtype)
     assert plan.widths[-1] == (15 if name == "flagship" else 17)
+    if dtype == torch.bfloat16:
+        # 14 convs a forward on wgmma: all but ConvBlock1's first
+        assert plan.path == "wgmma" and plan.wgmma_convs == 14
+        assert plan.wfrag > 40000
     if batch == 4096:
-        # the grid is one block on each of the card's 132 SMs, and bf16
-        # keeps every weight in shared memory beside at least 8 rows
-        assert plan.grid == 132 and plan.blocks_per_sm == 1
+        # the grid is one block on each of the card's 132 SMs; bf16 keeps
+        # every weight in shared memory beside 5 (MM-Fi: 4) warpgroups of 3
+        # rows
+        assert plan.grid == 132
         if dtype == torch.bfloat16:
-            assert plan.tile_rows >= 8 and plan.wfrag > 40000
+            assert (plan.wgs, plan.tile_rows) == (
+                (5, 3) if name == "flagship" else (4, 3))
+        else:
+            assert plan.blocks_per_sm == 1
+    if name == "mmfi" and dtype == torch.bfloat16:
+        # MM-Fi's smallest call, one sequence of 297 frames, still fills
+        # the 132 SMs
+        small = ck.conv_stack_plan(297 * cfg.window_size, conv_w0(name),
+                                   chans, dtype)
+        check_plan(small, 297 * cfg.window_size, conv_w0(name), chans,
+                   dtype)
+        assert small.grid == 132
 
 
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
@@ -213,8 +339,12 @@ def test_conv_stack_plan_any_batch(dtype, batch, name, sms):
     chans = ck._chans(stack(name, dtype))
     rows = batch * cfg.window_size
     plan = ck.conv_stack_plan(rows, conv_w0(name), chans, dtype, sms)
-    check_conv_plan(plan, rows, conv_w0(name), chans, dtype)
+    check_plan(plan, rows, conv_w0(name), chans, dtype, sms)
     assert plan.grid <= sms
+    if dtype == torch.bfloat16 and sms == 132:
+        # the tiles reach every SM where there are enough of them
+        ntiles = -(-rows // plan.tile_rows)
+        assert plan.grid == min(132, -(-ntiles // plan.wgs))
 
 
 def test_fragment_order_is_the_mma_b_layout():
@@ -232,16 +362,32 @@ def test_fragment_order_is_the_mma_b_layout():
     assert torch.equal(from_fragments(to_fragments(m), 48, 24), m)
 
 
+def view_rows(blk, j, view):
+    """The test's own reading of a k-step view: the 8 K rows it stands
+    for."""
+    co = blk.w1.shape[2]
+    if view is None:
+        return torch.zeros(8, co)
+    if view[0] == "short":
+        return blk.wd.float()[8 * view[1]:8 * view[1] + 8]
+    _, d, c = view
+    return (blk.w1, blk.w2, blk.w3)[j].float()[d, 8 * c:8 * c + 8]
+
+
 @pytest.mark.parametrize("dtype", DTYPES.values(), ids=DTYPES.keys())
 @pytest.mark.parametrize("name", MODELS)
 def test_conv_stack_packing_reads_back_to_the_taps(name, dtype):
-    """Each conv's [K, C_out]: taps tap-major, conv3 followed by the strided
-    shortcut's rows, zero padding to 16; the vectors hold b1, b2, b3 + e
-    and a 1-channel block's taps."""
+    """Each conv's [K, C_out]: fp32 taps tap-major, conv3 followed by the
+    strided shortcut's rows, zero padding to 16; bf16 the rows of its
+    k-steps' views; the vectors hold b1, b2, b3 + e and a 1-channel
+    block's taps."""
     st_ = stack(name, dtype)
     assert st_.wpack.dtype == dtype and st_.vec.dtype == torch.float32
-    shapes, _, _ = ck._stack_shapes(ck._chans(st_))
-    for blk, mats, sh in zip(st_, conv_k_matrices(st_), shapes):
+    chans = ck._chans(st_)
+    shapes, _, _ = ck._stack_shapes(chans)
+    steps = ck.wgmma_steps(chans)
+    for k, (blk, mats, sh) in enumerate(zip(st_, conv_k_matrices(st_),
+                                            shapes)):
         ci, co = blk.w1.shape[1:]
         want = [blk.w1.float().reshape(3 * ci, co),
                 blk.w2.float().reshape(3 * co, co),
@@ -251,6 +397,11 @@ def test_conv_stack_packing_reads_back_to_the_taps(name, dtype):
         for j, (got, w) in enumerate(zip(mats, want)):
             if j == 0 and ci == 1:
                 assert got.numel() == 0
+                continue
+            if dtype == torch.bfloat16:
+                rows = torch.cat([view_rows(blk, j, v) for pair in steps[k][j]
+                                  for v in pair])
+                assert torch.equal(got, rows)
                 continue
             assert got.shape[0] % 16 == 0 and got.shape[0] - w.shape[0] < 16
             assert torch.equal(got[:w.shape[0]], w)
@@ -267,6 +418,253 @@ def test_conv_stack_packing_reads_back_to_the_taps(name, dtype):
                                blk.w1.float().reshape(-1))
             assert torch.equal(v[sh.wdoff:sh.wdoff + co],
                                blk.wd.float().reshape(-1))
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_conv_stack_wgmma_b_reads_back_to_the_taps(name):
+    """The bf16 packing, read back through wgmma's B order, holds each
+    conv's k-steps one after another, 16 x C_out each: every tap chunk of
+    the conv's source and every shortcut chunk exactly once, beside zero
+    rows only where a view is None, and the k-steps fill the packing."""
+    st_ = stack(name, torch.bfloat16)
+    chans = ck._chans(st_)
+    steps = ck.wgmma_steps(chans)
+    woffs, total = ck._wgmma_woffs(chans)
+    assert st_.wpack.numel() == total
+    kw = st_.wpack.float().cpu()
+    at = 0
+    for k, blk in enumerate(st_):
+        ci, co, _ = chans[k]
+        for j in range(3):
+            st = steps[k][j]
+            if j == 0 and ci == 1:
+                assert st == ()
+                continue
+            assert woffs[k][j] == at
+            flat = kw[at:at + 16 * len(st) * co]
+            got = from_wgmma_b(flat, 16 * len(st), co)
+            assert torch.equal(to_wgmma_b(got), flat)
+            views = [v for pair in st for v in pair]
+            src = ci if j == 0 else co
+            want = {("tap", d, c) for d in range(3) for c in range(src // 8)}
+            if j == 2 and ci > 1:
+                want |= {("short", c) for c in range(ci // 8)}
+            assert sorted(v for v in views if v) == sorted(want)
+            for i, v in enumerate(views):
+                assert torch.equal(got[8 * i:8 * i + 8],
+                                   view_rows(blk, j, v).to(torch.bfloat16)
+                                   .float())
+            # at most one view of zeros a source (an odd chunk count)
+            assert views.count(None) <= 2
+            at += 16 * len(st) * co
+    assert at == total
+
+
+def plan_sources(plan):
+    """Per conv (bytes into the region, planes, plane bytes, positions a
+    row) of the buffer its taps read, and of the block's input for conv3's
+    shortcut."""
+    out = []
+    for i in range(len(plan.convs)):
+        k, j = divmod(i, 3)
+        src = plan.convs[i - 1][8] if i else 0
+        par = plan.planes[k] if j == 0 else 1
+        x_k = plan.convs[3 * k - 1][8] if k else 0
+        out.append(((src, par, plan.plane_bytes[k], plan.row_stride[k]),
+                    (x_k, plan.planes[k], plan.plane_bytes[k],
+                     plan.row_stride[k])))
+    return out
+
+
+def write_layout(region, buf, x):
+    """x ``[R, C, W]`` into a region (bf16 elements as floats) as the
+    kernel lays it out: rows padded with a zero position at both ends,
+    position-major planes of 8 channels, even and odd planes where the
+    buffer has 2."""
+    off, par, pb, q = buf
+    r, c, w = x.shape
+    xp = F.pad(x, (1, 1))                        # [R, C, W + 2]
+    for p in range(w + 2):
+        plane = (par * (torch.arange(c) // 8) + (p % 2 if par == 2 else 0))
+        pos = torch.arange(r)[:, None] * q + (p // 2 if par == 2 else p)
+        byte = (off + plane[None] * pb + pos * 16
+                + (torch.arange(c) % 8)[None] * 2)
+        region[byte // 2] = xp[:, :, p]
+
+
+def gather_views(region, kst, mp):
+    """A ``[64 m-tiles, 16 ks]``: each k-step's two core-matrix columns of
+    8 channels, read by descriptor (position m at +16 m bytes, the second
+    view LBO bytes after the first)."""
+    m = torch.arange(64 * -(-mp // 64))
+    cols = []
+    for a_off, lbo in kst:
+        for base in (a_off, a_off + lbo):
+            idx = (base + m[:, None] * 16) // 2 + torch.arange(8)[None, :]
+            cols.append(region[idx])
+    return torch.cat(cols, dim=1)
+
+
+@pytest.mark.parametrize("rows", (1, 140, 81920))
+@pytest.mark.parametrize("name", MODELS)
+def test_conv_stack_shifted_views_read_the_taps(name, rows):
+    """A torch mirror of the bf16 layout: each GEMM conv's A, gathered by
+    the plan's descriptors from its source (and the block's input for the
+    shortcut) laid out padded and, for a stride-2 block, de-interleaved,
+    times its packed B equals F.conv2d's taps (and the strided 1x1) at
+    every row's real positions; stride 1 and 2."""
+    gen = torch.Generator().manual_seed(5)
+    st_ = stack(name, torch.float32)
+    chans = ck._chans(st_)
+    plan = ck.conv_stack_plan(rows, conv_w0(name), chans, torch.bfloat16)
+    steps = ck.wgmma_steps(chans)
+    r = plan.tile_rows
+    for i, (src, xin) in enumerate(plan_sources(plan)):
+        k, j = divmod(i, 3)
+        ci, co, stride = chans[k]
+        if plan.convs[i][0] == 1:
+            continue
+        blk = st_.blocks[k]
+        region = torch.randn((plan.region + SLACK) // 2,
+                             generator=gen)           # stale data
+        w_in = plan.widths[k - 1] if k else conv_w0(name)
+        wo = plan.widths[k]
+        x = torch.randn(r, ci, w_in, generator=gen)
+        h = torch.randn(r, co, wo, generator=gen)
+        write_layout(region, xin, x)
+        if j:
+            write_layout(region, src, h)
+        (_, _, ks, kf, _, _, mp, q, *_rest) = plan.convs[i]
+        a = gather_views(region, plan.ksteps[kf:kf + ks], mp)
+        got = (a @ ck.wgmma_k_matrix(blk, j, steps[k][j]))[:mp]
+        got = got.reshape(r, q, co)[:, 1:-1].permute(0, 2, 1)
+        w = (blk.w1, blk.w2, blk.w3)[j].float()      # [3, Ci, Co]
+        inp, s = (x, stride) if j == 0 else (h, 1)
+        ref = F.conv2d(inp[:, :, None], w.permute(2, 1, 0)[:, :, None],
+                       stride=(1, s), padding=(0, 1))[:, :, 0]
+        if j == 2 and ci > 1:   # a 1-channel shortcut is the epilogue's
+            ref = ref + torch.einsum("riw,io->row", x[:, :, ::stride],
+                                     blk.wd.float())
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+def mirror_stack(plan, blocks, x):
+    """The whole bf16 plan run by a torch mirror in fp32 (no rounding): one
+    warpgroup's tile of ``x`` ``[<= R, W0]`` through its region, conv by
+    conv as the kernel addresses it."""
+    chans = ck._chans(blocks)
+    steps = ck.wgmma_steps(chans)
+    shapes, _, _ = ck._stack_shapes(chans)
+    r, w0 = plan.tile_rows, x.shape[1]
+    region = torch.zeros((plan.region + SLACK) // 2)
+    region[:x.numel()] = x.reshape(-1)
+    vec = torch.zeros(plan.nvec)
+    for blk, sh in zip(blocks, shapes):
+        for j, cs in enumerate(sh.convs):
+            vec[cs.boff:cs.boff + sh.co] = (blk.b1, blk.b2,
+                                            blk.b3 + blk.bd)[j].float()
+        if sh.w1off >= 0:
+            vec[sh.w1off:sh.w1off + 3 * sh.co] = blk.w1.float().reshape(-1)
+            vec[sh.wdoff:sh.wdoff + sh.co] = blk.wd.float().reshape(-1)
+    for i, c in enumerate(plan.convs):
+        (kind, nt, ks, kf, _, boff, mp, q, dst, dpb, dp, dq, wdoff, stride,
+         w1off, co) = c
+        k, j = divmod(i, 3)
+        m = torch.arange(mp)
+        row, pos = m // q, m % q
+        pad = (pos == 0) | (pos == q - 1)
+
+        def x_at(p):
+            ok = (~pad) & (p >= 0) & (p < w0)
+            return torch.where(ok, region[(row * w0 + p).clamp(0, r * w0 - 1)],
+                               0.0)
+        if kind == 1:
+            w1 = vec[w1off:w1off + 3 * co].reshape(3, co)
+            v = vec[boff:boff + co] + sum(
+                x_at(stride * (pos - 1) + d - 1)[:, None] * w1[d]
+                for d in range(3))
+        else:
+            a = gather_views(region, plan.ksteps[kf:kf + ks], mp)
+            v = (a @ ck.wgmma_k_matrix(blocks[k], j, steps[k][j]))[:mp]
+            v = v + vec[boff:boff + co]
+            if wdoff >= 0:
+                v = v + x_at(stride * (pos - 1))[:, None] * vec[
+                    wdoff:wdoff + co]
+        v = F.silu(v)
+        v[pad] = 0
+        ch = torch.arange(co)[None]
+        if dp == 0:
+            ok = ~pad
+            at = dst // 2 + (row[ok, None] * co + ch) * (q - 2) + pos[ok, None] - 1
+            region[at] = v[ok]
+        else:
+            if dp == 1:
+                byte = dst + m * 16
+            else:
+                byte = dst + (pos % 2) * dpb + (row * dq + pos // 2) * 16
+            region[byte[:, None] // 2 + (ch // 8) * (dp * dpb // 2)
+                   + ch % 8] = v
+    co, wl = chans[-1][1], plan.widths[-1]
+    last = plan.convs[-1][8] // 2
+    return region[last:last + r * co * wl].reshape(r, co, wl)[:x.shape[0]]
+
+
+@pytest.mark.parametrize("w0,rows", ((None, 140), (None, 81920), (33, 300),
+                                     (17, 7)))
+@pytest.mark.parametrize("name", MODELS)
+def test_conv_stack_wgmma_mirror_matches_the_plain_stack(name, w0, rows):
+    """The bf16 plan end to end in a torch mirror (its region, its
+    k-step table, its epilogues' writes, the pads, the planes, the staged
+    output) equals the plain stack in fp32, at the models' widths and at
+    odd ones."""
+    gen = torch.Generator().manual_seed(6)
+    st_ = stack(name, torch.float32)
+    w0 = w0 or conv_w0(name)
+    plan = ck.conv_stack_plan(rows, w0, ck._chans(st_), torch.bfloat16)
+    x = torch.randn(plan.tile_rows, w0, generator=gen)
+    got = mirror_stack(plan, st_.blocks, x)
+    torch.testing.assert_close(got, ck.conv_stack_plain(x, st_.blocks),
+                               rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", MODELS)
+def test_conv_stack_wgmma_convs_counted_per_forward(name, monkeypatch):
+    """``serve.conv_stack_wgmma_convs`` and ``conv_stack.wgmma_convs`` count
+    14 convs a bf16 forward of either model (ConvBlock1's conv2 and conv3,
+    3 in each stride-2 block), the launch stubbed: CPU tensors taken down
+    the CUDA wrapper to a C entry point that returns success."""
+    from wiflow_tpu_torch.models import fast
+    _, sd = model(name)
+    monkeypatch.setattr(ck, "fused_conv_stack_eval", ck._launch)
+    monkeypatch.setattr(fast, "fused_conv_stack_eval", ck._launch)
+    monkeypatch.setattr(ck, "sm_count", lambda index: 132)
+    monkeypatch.setattr(ck, "stream_ptr", lambda device: None)
+    monkeypatch.setattr(ck.KERNEL, "_fn", lambda *args: 0)
+    monkeypatch.setattr(ck, "wgmma_convs", 0)
+    if name == "flagship":
+        packed = fast.pack_fast(sd, ModelConfig(), device="cpu")
+        run, x = fast.fast_forward, torch.zeros(2, 540, 20)
+    else:
+        packed = fast.pack_fast_mmfi(sd, MMFiModelConfig(), device="cpu")
+        run, x = fast.fast_forward_mmfi, torch.zeros(2, 3, 114, 10)
+    launches = ck.KERNEL.launches
+    trace.collect()
+    trace.enable()
+    try:
+        for _ in range(2):
+            run(packed, x)
+    finally:
+        trace.disable()
+    counts = trace.collect().counts
+    assert counts["serve.conv_stack_wgmma_convs"] == 2 * 14
+    assert ck.wgmma_convs == 2 * 14
+    assert ck.KERNEL.launches - launches == 2
+    # fp32 runs on the CUDA cores: nothing counted
+    packed32 = (fast.pack_fast if name == "flagship" else fast.pack_fast_mmfi)(
+        sd, ModelConfig(compute_dtype="float32") if name == "flagship"
+        else MMFiModelConfig(compute_dtype="float32"), device="cpu")
+    run(packed32, x)
+    assert ck.wgmma_convs == 2 * 14
 
 
 def test_conv_stack_widths_the_kernel_does_not_take():

@@ -14,10 +14,26 @@ tensor :func:`fused_conv_stack_eval` launches ``csrc/conv_stack.cu`` once
 for the whole stack; on a CPU tensor it runs :func:`conv_stack_plain`.
 The TPU kernel's space-to-depth banded weights are not carried over: the
 blocks keep the plain ``[3, C_in, C_out]`` taps, and :func:`stack_weights`
-packs them once more for the kernel, each conv as the ``[K, C_out]``
-matrix of its implicit GEMM (K = 8-channel chunks, tap-major, then the
-shortcut's), in bf16 in the order the tensor cores' B fragments are read.
-:func:`conv_stack_plan` sizes the launch.
+packs them once more for the kernel, by the path :func:`conv_stack_plan`
+takes for the dtype:
+
+- bf16, the ``wgmma`` path: each conv with C_in >= 8 is an implicit GEMM
+  whose k-steps are pairs of 8-channel views (:func:`wgmma_steps`: two
+  channel chunks of one tap, two taps of one chunk, a shortcut chunk, or a
+  chunk beside zero weights); its ``[16 ks, C_out]`` matrix in wgmma's B
+  order (``fragments.py::to_wgmma_b``).  The plan lays each warpgroup's
+  activations out position-major in 16-byte atoms, every row padded with
+  a zero position at both ends and a stride-2 block's input in even and
+  odd planes, so that each view is a shared-memory descriptor: the plan's
+  table of k-steps (byte offset, leading byte offset) is all the kernel
+  reads to address them;
+- fp32, the ``fma`` path on CUDA cores: each conv as the ``[K, C_out]``
+  matrix of its implicit GEMM (K = 8-channel chunks, tap-major, then the
+  shortcut's), K padded to 16.
+
+A launch on the wgmma path counts its convolutions on wgmma in
+:data:`wgmma_convs` and ``serve.conv_stack_wgmma_convs``
+(``utils/trace.py``, while tracing is on).
 """
 
 from __future__ import annotations
@@ -35,8 +51,9 @@ from wiflow_tpu_torch.ops.kernels.build import (
     SMEM_LIMIT, SMS, CudaKernel, check_tensor, dtype_code, ptr, sm_count,
     stream_ptr,
 )
-from wiflow_tpu_torch.ops.kernels.fragments import to_fragments
+from wiflow_tpu_torch.ops.kernels.fragments import to_wgmma_b
 from wiflow_tpu_torch.ops.norm import folded_bn
+from wiflow_tpu_torch.utils import trace
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNEL = CudaKernel("conv_stack", "conv_stack_forward",
@@ -44,11 +61,25 @@ KERNEL = CudaKernel("conv_stack", "conv_stack_forward",
                                                ctypes.c_size_t, _P],
                     replaces="wiflow_tpu/ops/pallas/conv_stack.py:218")
 _MAX_BLOCKS = 8
-THREADS = 768                 # 24 warps, one block an SM
+THREADS = 768                 # fp32: 24 warps, one block an SM
 _WARPS = THREADS // 32
 _MAX_NT = 4                   # 8-column tiles of a warp unit
 _ZERO_BYTES = 512             # the kernel's row of zeros
 _MAX_TILE_ROWS = 32
+# bf16 (wgmma): warpgroups a block (each walks its own row tiles), the
+# widest C_out (one m64nNk16 per k-step, N = 8 NT, NT <= 8), the plan's
+# table sizes, and the ints a conv takes in the kernel's arguments
+_MAX_WGS = 5
+_WG_ROWS = 3                  # the tile rows the warpgroup count is set by
+_MAX_W_NT = 8
+_MAX_KSTEPS = 160
+_CONV_INTS = 16
+_M = 64                       # wgmma's M: positions of an m-tile
+_SLACK = (_M + 4) * 16        # bytes after the regions that views may read
+
+# Convolutions launched on wgmma (bf16), a plain integer beside
+# ``KERNEL.launches``; callers may reset it to 0.
+wgmma_convs = 0
 
 
 class ConvBlockWeights(NamedTuple):
@@ -97,9 +128,9 @@ class ConvStackWeights(SequenceABC):
     the kernel's packing of them."""
 
     blocks: Tuple[ConvBlockWeights, ...]
-    wpack: Optional[torch.Tensor]   # bf16: B fragments, fp32: [K_pad, C_out],
-    #                                 each conv; None where the kernel does
-    #                                 not take the widths
+    wpack: Optional[torch.Tensor]   # bf16: wgmma B k-steps, fp32: [K_pad,
+    #                                 C_out], each conv; None where the
+    #                                 kernel does not take the widths
     vec: Optional[torch.Tensor]     # fp32: biases (conv3's with the
     #                                 shortcut's), the taps of a 1-channel
     #                                 block's conv1 and shortcut
@@ -112,9 +143,10 @@ class ConvStackWeights(SequenceABC):
 
 
 def _ld(c: int) -> int:
-    """Elements of a position's row in shared memory: whole 16-byte words
-    (8 channels; a 1-channel input is not read by ldmatrix), an odd number
-    of them, so that an ldmatrix's 8 rows meet no bank conflict."""
+    """Elements of a position's row in shared memory (fp32): whole 16-byte
+    words of 8 channels (a 1-channel input is read one element at a time),
+    an odd number of them, so that the 8 positions a warp's lanes read at
+    once meet no bank conflict."""
     return 1 if c == 1 else (c if c // 8 % 2 else c + 8)
 
 
@@ -182,31 +214,111 @@ def _k_matrix(blk: ConvBlockWeights, j: int) -> torch.Tensor:
     return m
 
 
+# A view: 8 channels of the A operand for every output position.
+# ("tap", d, c): tap d of the conv's source, channel chunk c;
+# ("short", c): the strided shortcut's chunk c of the block's input;
+# None: zero weights (the k-step's other half is read, times zero).
+View = Optional[Tuple]
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_steps(chans: Tuple[Tuple[int, int, int], ...]
+                ) -> Tuple[Tuple[Tuple[Tuple[View, View], ...], ...], ...]:
+    """Per block, per conv, the k-steps of its wgmma GEMM as pairs of
+    views (K rows 0-7 and 8-15 of the step); empty for ConvBlock1's
+    elementwise first conv.  Two chunks of one tap where the source has an
+    even number of chunks; an odd one left over pairs tap 0 with tap 1 and
+    tap 2 with zeros; the shortcut's chunks follow conv3's taps."""
+    out = []
+    for ci, co, _ in chans:
+        convs = []
+        for j in range(3):
+            steps = []
+            if j == 0 and ci == 1:
+                convs.append(())
+                continue
+            cc = (ci if j == 0 else co) // 8
+            for d in range(3):
+                steps += [(("tap", d, 2 * i), ("tap", d, 2 * i + 1))
+                          for i in range(cc // 2)]
+            if cc % 2:
+                steps += [(("tap", 0, cc - 1), ("tap", 1, cc - 1)),
+                          (("tap", 2, cc - 1), None)]
+            if j == 2 and ci > 1:
+                cs = ci // 8
+                steps += [(("short", 2 * i), ("short", 2 * i + 1))
+                          for i in range(cs // 2)]
+                if cs % 2:
+                    steps.append((("short", cs - 1), None))
+            convs.append(tuple(steps))
+        out.append(tuple(convs))
+    return tuple(out)
+
+
+def _view_rows(blk: ConvBlockWeights, j: int, view: View) -> torch.Tensor:
+    """The 8 K rows ``[8, C_out]`` (fp32) that a view multiplies."""
+    co = blk.w1.shape[2]
+    if view is None:
+        return torch.zeros(8, co)
+    if view[0] == "short":
+        return blk.wd.float()[8 * view[1]:8 * view[1] + 8].cpu()
+    _, d, c = view
+    w = (blk.w1, blk.w2, blk.w3)[j].float()
+    return w[d, 8 * c:8 * c + 8].cpu()
+
+
+def wgmma_k_matrix(blk: ConvBlockWeights, j: int,
+                   steps: Sequence[Tuple[View, View]]) -> torch.Tensor:
+    """Conv j's GEMM weight ``[16 ks, C_out]`` in fp32, in the order of its
+    k-steps."""
+    return torch.cat([_view_rows(blk, j, v) for pair in steps for v in pair])
+
+
+def _wgmma_woffs(chans) -> Tuple[Tuple[Tuple[int, ...], ...], int]:
+    """Per block, per conv, its first element in the packed bf16 weights;
+    the elements in all."""
+    offs, woff = [], 0
+    for (_, co, _), convs in zip(chans, wgmma_steps(chans)):
+        o = []
+        for steps in convs:
+            o.append(woff)
+            woff += 16 * len(steps) * co
+        offs.append(tuple(o))
+    return tuple(offs), woff
+
+
 def stack_weights(blocks: Sequence[ConvBlockWeights]) -> ConvStackWeights:
     """Pack the blocks' taps for the kernel (see the module note)."""
     blocks = tuple(blocks)
     w1 = blocks[0].w1
     dt, dev = w1.dtype, w1.device
     try:
-        shapes, nw, nv = _stack_shapes(_chans(blocks))
+        chans = _chans(blocks)
+        shapes, nw, nv = _stack_shapes(chans)
+        if dt == torch.bfloat16:
+            woffs, nw = _wgmma_woffs(chans)
     except ValueError:
         # widths the kernel does not take: the plain version serves them,
         # and a launch raises with the reason
         return ConvStackWeights(blocks, None, None)
     wpack = torch.zeros(nw, dtype=torch.float32)
     vec = torch.zeros(nv, dtype=torch.float32)
-    for blk, sh in zip(blocks, shapes):
+    for k, (blk, sh) in enumerate(zip(blocks, shapes)):
         co = sh.co
         for j, cs in enumerate(sh.convs):
             bias = (blk.b1, blk.b2, blk.b3 + blk.bd)[j]
             vec[cs.boff:cs.boff + co] = bias.float().cpu()
             if cs.k == 0:
                 continue
-            m = torch.zeros(cs.ksteps * 16, co)
-            m[:cs.k] = _k_matrix(blk, j).cpu()
             if dt == torch.bfloat16:
-                m = to_fragments(m)
-            wpack[cs.woff:cs.woff + m.numel()] = m.reshape(-1)
+                m = to_wgmma_b(wgmma_k_matrix(blk, j,
+                                              wgmma_steps(chans)[k][j]))
+                woff = woffs[k][j]
+            else:
+                m = torch.zeros(cs.ksteps * 16, co)
+                m[:cs.k] = _k_matrix(blk, j).cpu()
+                woff = cs.woff
+            wpack[woff:woff + m.numel()] = m.reshape(-1)
         if sh.w1off >= 0:
             vec[sh.w1off:sh.w1off + 3 * co] = blk.w1.float().reshape(-1).cpu()
             vec[sh.wdoff:sh.wdoff + co] = blk.wd.float().reshape(-1).cpu()
@@ -256,6 +368,7 @@ class ConvStackPlan(NamedTuple):
     units: Tuple[Tuple[Tuple[int, int], ...], ...]   # (m-, n-tiles) of a
     #                         warp unit, per block and conv
     dims: Tuple[int, ...]   # the C side's 24 ints a block
+    path: str = "fma"       # fp32: CUDA-core FMAs
 
 
 # Warp units the kernel has (m-tiles, n-tiles): at most 4 accumulator tiles.
@@ -288,14 +401,15 @@ def conv_stack_plan(rows: int, w0: int,
     """The launch for ``rows`` rows of ``w0`` features through blocks of
     ``chans`` = ((C_in, C_out, stride), ...).  Pure: the CPU tests hold it.
 
-    bf16 stages every weight in shared memory for the block's life, fp32
-    reads them from device memory; the rest of an SM's shared memory holds
-    the tile's three activation slots."""
+    bf16 takes the wgmma path (:func:`wgmma_plan`).  fp32 reads its
+    weights from device memory; an SM's shared memory holds the tile's
+    three activation slots."""
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"conv stack takes float32 or bfloat16, got {dtype}")
-    esize = 2 if dtype == torch.bfloat16 else 4
-    shapes, nw, nvec = _stack_shapes(chans)
-    wfrag = nw if esize == 2 else 0
+    if dtype == torch.bfloat16:
+        return wgmma_plan(rows, w0, chans, sms)
+    esize, wfrag = 4, 0
+    shapes, _, nvec = _stack_shapes(chans)
     widths, lds, w = [], [], w0
     for sh in shapes:
         w = (w - 1) // sh.stride + 1
@@ -327,6 +441,193 @@ def conv_stack_plan(rows: int, w0: int,
                          tuple(lds), tuple(widths), tuple(units), tuple(dims))
 
 
+class ConvStackWgmmaPlan(NamedTuple):
+    """One bf16 launch: what ``csrc/conv_stack.cu`` is given.  Offsets are
+    bytes into a warpgroup's region of shared memory unless named
+    otherwise."""
+
+    wgs: int                # consumer warpgroups a block
+    tile_rows: int          # rows a warpgroup's tile; a warpgroup walks
+    #                         tiles grid * wgs apart
+    grid: int               # blocks: one an SM
+    smem: int               # bytes of dynamic shared memory a block
+    region: int             # bytes of a warpgroup's region
+    xbuf: int               # its input rows' bytes, at offset 0
+    buffers: Tuple[Tuple[int, int, int, int], ...]   # each block's input,
+    #                         h1, h2 and output: offsets into the region
+    nvec: int               # floats of the vectors
+    wfrag: int              # bf16 weight elements staged
+    widths: Tuple[int, ...]       # each block's output width W
+    row_stride: Tuple[int, ...]   # W + 2: positions a row, zero at both ends
+    planes: Tuple[int, ...]       # each block's input: 1, or 2 even/odd
+    plane_bytes: Tuple[int, ...]  # bytes a plane of each block's buffers
+    convs: Tuple[Tuple[int, ...], ...]   # _CONV_INTS a conv (see the .cu)
+    ksteps: Tuple[Tuple[int, int], ...]  # (A's offset at position 0, LBO)
+    wgmma_convs: int        # convolutions a launch runs on wgmma
+    dims: Tuple[int, ...]   # region, xbuf, k-steps, then convs and k-steps
+    path: str = "wgmma"
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+def _wgmma_layout(w0: int, chans, tile_rows: int):
+    """The per-warpgroup layout at ``tile_rows`` rows: widths, row strides,
+    planes, plane bytes, each block's buffers (its input, h1, h2, output:
+    offsets), the region's bytes and the input rows' bytes, which lie
+    first.  The rest holds the largest working set of any conv, not three
+    of the largest buffer."""
+    widths, qs, pls, pbs, w = [], [], [], [], w0
+    for _, _, stride in chans:
+        w = (w - 1) // stride + 1
+        widths.append(w)
+        qs.append(w + 2)
+        pls.append(stride)
+        # a plane holds the tile's positions; a view reads from position -1
+        # (the buffer before) to the last m-tile's end + 2 (whatever
+        # follows, or the slack after the regions)
+        pbs.append(tile_rows * (w + 2) * 16)
+    xbuf = _round16(tile_rows * w0 * 2 + 32)
+    # bytes of each block's input (block 0's: the input rows, apart), of
+    # h1 and h2, and of its output (the next block's input, or the result)
+    sizes, x = [], 0
+    for k, (_, co, _) in enumerate(chans):
+        h = co // 8 * pbs[k]
+        out = (co // 8 * pls[k + 1] * pbs[k + 1] if k + 1 < len(chans)
+               else _round16(tile_rows * co * widths[-1] * 2))
+        sizes.append((x, h, out))
+        x = out
+    # block k's input sits at one end of the space, h2 beside it, h1 and
+    # the output at the other end (h1 is dead when conv3 writes the output),
+    # the ends swapping block by block: the space is the largest working set
+    span = max(x + h + max(h, out) for x, h, out in sizes)
+    bufs, x_off = [], 0
+    for k, (x, h, out) in enumerate(sizes):
+        if k % 2 == 0:   # the input at the low end
+            bufs.append((x_off, xbuf + span - h, xbuf + x, xbuf + span - out))
+        else:
+            bufs.append((x_off, xbuf, xbuf + span - x - h, xbuf))
+        x_off = bufs[-1][3]
+    region = xbuf + span
+    return (tuple(widths), tuple(qs), tuple(pls), tuple(pbs), tuple(bufs),
+            region, xbuf)
+
+
+def _tile_cost(tile_rows: int, chans, qs) -> float:
+    """A tile's SM clocks by a rough model, to rank tile sizes: 2 MUFU a
+    SiLU at 16 a clock for every position of the warps' 16-row bands, an
+    m-tile's k-step at 128 bytes a clock of shared memory (A 2 KB, B 32 N
+    bytes), and a fixed cost a conv."""
+    cost = 0.0
+    for steps, (ci, co, _), q in zip(wgmma_steps(tuple(chans)), chans, qs):
+        mp = tile_rows * q
+        for st in steps:
+            cost += 16 * -(-mp // 16) * co / 8 + 200
+            cost += -(-mp // _M) * len(st) * (16 + co / 4)
+    return cost
+
+
+@functools.lru_cache(maxsize=None)
+def wgmma_plan(rows: int, w0: int, chans: Tuple[Tuple[int, int, int], ...],
+               sms: int = SMS) -> ConvStackWgmmaPlan:
+    """The bf16 launch.  Pure: the CPU tests hold it.
+
+    A block stages the vectors, the weights and the plan's tables in
+    shared memory and gives each warpgroup a region of the rest: its input
+    rows and its buffers (:func:`_wgmma_layout`).  Each warpgroup walks
+    its own tiles, so one warpgroup's epilogues (SiLUs on the SFU) overlap
+    another's products.
+    The plan takes the most warpgroups (up to 5) at which tiles of 3 rows
+    fit, else 2: 3 rows of the narrowest blocks (W + 2 = 17-19 positions)
+    fill most of a 64-position m-tile, and more warpgroups at 2 rows ran no
+    faster on the H100.  Then the tile rows that the cost model ranks
+    first over the rounds of tiles the grid leaves; the grid fills the SMs
+    where the tiles do."""
+    shapes, _, nvec = _stack_shapes(chans)
+    for k, (ci, co, stride) in enumerate(chans):
+        if co > 8 * _MAX_W_NT or stride not in (1, 2) or (k and ci == 1):
+            raise ValueError(
+                f"block {k}: {ci} -> {co} channels, stride {stride}; the "
+                f"bf16 kernel takes up to {8 * _MAX_W_NT} channels out, "
+                f"strides 1 and 2, and 1 channel in only in block 0")
+    steps = wgmma_steps(chans)
+    woffs, wfrag = _wgmma_woffs(chans)
+    nkst = sum(len(st) for convs in steps for st in convs)
+    if nkst > _MAX_KSTEPS:
+        raise ValueError(f"{nkst} k-steps; the kernel takes {_MAX_KSTEPS}")
+    fixed = (_round16(nvec * 4) + _round16(wfrag * 2)
+             + _round16((3 * len(chans) * _CONV_INTS + 2 * nkst) * 4)
+             + _SLACK)
+
+    def most_rows(wgs):
+        tr = 0
+        while fixed + wgs * _wgmma_layout(w0, chans, tr + 1)[5] <= SMEM_LIMIT:
+            tr += 1
+        return tr
+
+    wgs = _MAX_WGS
+    while wgs > 2 and most_rows(wgs) < _WG_ROWS:
+        wgs -= 1
+    best = None
+    for tr in range(1, min(most_rows(wgs), rows) + 1):
+        lay = _wgmma_layout(w0, chans, tr)
+        ntiles = -(-rows // tr)
+        grid = min(sms, -(-ntiles // wgs))
+        cost = -(-ntiles // (grid * wgs)) * _tile_cost(tr, chans, lay[1])
+        if best is None or cost <= best[0]:
+            best = (cost, tr, grid, lay)
+    if best is None:
+        raise ValueError(f"one row of {w0} features needs more shared memory "
+                         f"than the {SMEM_LIMIT} bytes of a block")
+    _, tr, grid, lay = best
+    widths, qs, pls, pbs, bufs, region, xbuf = lay
+    convs, kst = [], []
+    for k, ((ci, co, stride), sh) in enumerate(zip(chans, shapes)):
+        x_off, h1, h2, out = bufs[k]
+        last = k == len(chans) - 1
+        srcs = ((x_off, pls[k]), (h1, 1), (h2, 1))
+        for j in range(3):
+            src, par = srcs[j]
+
+            def addr(v, src=src, par=par, pb=pbs[k]):
+                """A view's bytes at output position 0: stride 1 reads
+                position d - 1; stride 2 entry -1, -1, 0 of the even, odd,
+                even plane (the shortcut: the odd plane's -1)."""
+                if v[0] == "short":
+                    c = v[1]
+                    if pls[k] == 1:
+                        return x_off + c * pb
+                    return x_off + (2 * c + 1) * pb - 16
+                _, d, c = v
+                if par == 1:
+                    return src + c * pb + (d - 1) * 16
+                odd, shift = ((0, -1), (1, -1), (0, 0))[d]
+                return src + (2 * c + odd) * pb + shift * 16
+            first = len(kst)
+            for va, vb in steps[k][j]:
+                at = addr(va)
+                kst.append((at, 16 if vb is None else addr(vb) - at))
+            if j < 2:
+                dst, dpb, dp, dq = (h1, h2)[j], pbs[k], 1, qs[k]
+            elif last:
+                dst, dpb, dp, dq = out, 0, 0, qs[k]
+            else:
+                dst, dpb, dp, dq = out, pbs[k + 1], pls[k + 1], qs[k + 1]
+            elementwise = j == 0 and ci == 1
+            convs.append((
+                1 if elementwise else 0, co // 8, len(kst) - first, first,
+                2 * woffs[k][j], sh.convs[j].boff, tr * qs[k], qs[k], dst,
+                dpb, dp, dq, sh.wdoff if j == 2 and ci == 1 else -1, stride,
+                sh.w1off if elementwise else -1, co))
+    dims = [region, xbuf, len(kst)] + [v for c in convs for v in c] + [
+        v for e in kst for v in e]
+    return ConvStackWgmmaPlan(
+        wgs, tr, grid, fixed + wgs * region, region, xbuf, bufs, nvec, wfrag,
+        widths, qs, pls, pbs, tuple(convs), tuple(kst),
+        sum(1 for c in convs if c[0] == 0), tuple(dims))
+
+
 def _launch(x: torch.Tensor, stack: ConvStackWeights) -> torch.Tensor:
     if not isinstance(stack, ConvStackWeights):
         raise TypeError("the kernel takes the packed ConvStackWeights "
@@ -340,15 +641,22 @@ def _launch(x: torch.Tensor, stack: ConvStackWeights) -> torch.Tensor:
     check_tensor(stack.vec, "vec", device=dev, dtype=torch.float32)
     plan = conv_stack_plan(rows, w0, _chans(stack.blocks), dt,
                            sm_count(dev.index or 0))
-    if stack.vec.numel() != plan.nvec:
-        raise ValueError("the packed vectors do not match the blocks")
+    if stack.vec.numel() != plan.nvec or (
+            plan.path == "wgmma" and stack.wpack.numel() != plan.wfrag):
+        raise ValueError("the packed weights do not match the blocks")
     co = stack.blocks[-1].w1.shape[2]
     out = torch.empty((rows, co, plan.widths[-1]), dtype=dt, device=dev)
     dims = (ctypes.c_int * len(plan.dims))(*plan.dims)
+    # bf16: the C side takes the warpgroups in row_elems' place
+    per_tile = plan.row_elems if plan.path == "fma" else plan.wgs
     KERNEL.launch(dtype_code(dt), ptr(x), ptr(out), rows, w0, plan.tile_rows,
-                  plan.row_elems, plan.grid, len(stack.blocks), dims,
+                  per_tile, plan.grid, len(stack.blocks), dims,
                   ptr(stack.wpack), ptr(stack.vec), plan.nvec, plan.wfrag,
                   ctypes.c_size_t(plan.smem), stream_ptr(dev))
+    if plan.path == "wgmma":
+        global wgmma_convs
+        wgmma_convs += plan.wgmma_convs
+        trace.count("serve.conv_stack_wgmma_convs", plan.wgmma_convs)
     return out
 
 
